@@ -1,0 +1,688 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of APEX on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. environment: torch/CUDA versions, device, nvidia-smi name and power limit;
+  2. kernels: builds every CUDA kernel from src/repro_torch/csrc with nvcc
+     (sm_90a), holds each against its plain PyTorch version over the
+     reference sweeps and at the main-path shapes, checks that prefill
+     output is bitwise independent of how a prompt is split, and times
+     kernel, plain version and one library call against the card's bound;
+  3. exactness: llama3.1-8b reduced to d_model 256 in fp32 -- greedy tokens
+     from raw prefill+decode, engine device rows and host-offloaded rows
+     must be identical;
+  4. serving: InferenceServer on llama3.1-8b at its published width (bf16,
+     random weights from a seed), 8 requests over 4 device + 4 host slots;
+  5. cli: ``python -m repro_torch.launch.serve`` with its defaults.
+
+The line before the last is the JSON ``kernels`` record; the last line is
+``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
+``kernels`` record needs the serving phase for its launch counts).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and dense
+# tensor-core / CUDA-core rates.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+DECODE_SWEEP = [            # (B, H, KV, D, S) -- tests/test_kernels.py
+    (1, 4, 4, 64, 128),
+    (2, 8, 2, 64, 512),
+    (3, 8, 1, 128, 384),
+    (2, 16, 8, 128, 1024),
+]
+PREFILL_SWEEP = [           # (B, T, H, KV, D, causal)
+    (1, 128, 4, 4, 64, True),
+    (2, 256, 8, 2, 64, True),
+    (1, 200, 4, 1, 64, True),
+    (2, 128, 4, 4, 64, False),
+]
+CHUNK_SWEEP = [             # (B, T_chunk, S_cache, H, KV, D)
+    (2, 64, 160, 4, 2, 64),
+    (1, 32, 96, 4, 1, 64),
+]
+TOL = {("decode", "float32"): 1e-5, ("decode", "bfloat16"): 2e-2,
+       ("prefill", "float32"): 1e-5, ("prefill", "bfloat16"): 3e-2}
+
+# main-path shapes of llama3.1-8b in the serving phase
+MAIN = dict(heads=32, kv_heads=8, head_dim=128, layers=32, cache_len=512,
+            device_slots=4, host_slots=4, prompt_len=128, output_len=16,
+            requests=8)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"FAIL: {msg}")
+
+
+def dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def close(out, ref, tol):
+    """(max |out - ref|, allclose at atol = rtol = tol)."""
+    import torch
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    ok = bool((err <= tol + tol * r.abs()).all())
+    return float(err.max()), ok
+
+
+def time_ms(fn, *, warmup: int = 3, reps: int = 20,
+            rounds: int = 5) -> float:
+    """Per-call time of ``fn`` on the card: CUDA events around ``reps``
+    back-to-back calls, divided by ``reps``; median of ``rounds``.  Where
+    the host enqueues slower than the card runs, this is the host's rate."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, *, reps: int = 20):
+    """Device time per call of ``fn``: the summed self time of every
+    kernel it ran, from ``torch.profiler`` (no host enqueue); None when
+    the profiler reports no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        total_us += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+
+def phase_env() -> dict:
+    import torch
+    name = torch.cuda.get_device_name(0)
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  device {name}  "
+        f"count {torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    return {"name": name, "card": card}
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+
+def _randn(gen, shape, dtype, device):
+    import torch
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32).to(dtype)
+
+
+def _decode_case(gen, b, h, kv, d, s, dtype, lengths=None):
+    import torch
+    q = _randn(gen, (b, h, d), dtype, "cuda")
+    k = _randn(gen, (b, s, kv, d), dtype, "cuda")
+    v = _randn(gen, (b, s, kv, d), dtype, "cuda")
+    if lengths is None:
+        lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+    return q, k, v, lengths
+
+
+def check_sweeps(gen) -> None:
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        for b, h, kv, d, s in DECODE_SWEEP:
+            q, k, v, lengths = _decode_case(gen, b, h, kv, d, s, dtype)
+            out = decode_attention_cuda(q, k, v, lengths)
+            err, ok = close(out, ref.decode_attention_ref(q, k, v, lengths),
+                            TOL["decode", dn])
+            log(f"  decode  {dn:8s} B{b} H{h} KV{kv} D{d} S{s}: "
+                f"max_abs_err {err:.3e}")
+            if not ok:
+                fail(f"decode_attention {dn} {(b, h, kv, d, s)} err {err}")
+        for b, t, h, kv, d, causal in PREFILL_SWEEP:
+            q = _randn(gen, (b, t, h, d), dtype, "cuda")
+            k = _randn(gen, (b, t, kv, d), dtype, "cuda")
+            v = _randn(gen, (b, t, kv, d), dtype, "cuda")
+            prefix = torch.randint(0, t // 2, (b,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            out = prefill_attention_cuda(q, k, v, prefix, causal=causal)
+            expect = ref.prefill_attention_ref(q, k, v, prefix, causal=causal)
+            err, ok = close(out, expect, TOL["prefill", dn])
+            log(f"  prefill {dn:8s} B{b} T{t} H{h} KV{kv} D{d} "
+                f"causal={causal}: max_abs_err {err:.3e}")
+            if not ok:
+                fail(f"prefill_attention {dn} {(b, t, h, kv, d)} err {err}")
+        for b, t, s, h, kv, d in CHUNK_SWEEP:
+            q = _randn(gen, (b, t, h, d), dtype, "cuda")
+            k = _randn(gen, (b, s, kv, d), dtype, "cuda")
+            v = _randn(gen, (b, s, kv, d), dtype, "cuda")
+            off = torch.randint(0, s - t + 1, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            out = prefill_attention_cuda(q, k, v, None, off)
+            err, ok = close(out, ref.prefill_attention_ref(q, k, v, None, off),
+                            TOL["prefill", dn])
+            log(f"  chunk   {dn:8s} B{b} T{t} S{s} H{h} KV{kv} D{d}: "
+                f"max_abs_err {err:.3e}")
+            if not ok:
+                fail(f"chunked prefill {dn} {(b, t, s)} err {err}")
+    # two cases where the Pallas kernel departs from the oracle: a prefix
+    # past the first query block, and full attention over a ragged S
+    for t, causal, pre in ((128, True, 100), (100, False, 0)):
+        q = _randn(gen, (1, t, 2, 32), torch.float32, "cuda")
+        k = _randn(gen, (1, t, 2, 32), torch.float32, "cuda")
+        v = _randn(gen, (1, t, 2, 32), torch.float32, "cuda")
+        prefix = torch.tensor([pre], dtype=torch.int32, device="cuda")
+        err, ok = close(prefill_attention_cuda(q, k, v, prefix,
+                                               causal=causal),
+                        ref.prefill_attention_ref(q, k, v, prefix,
+                                                  causal=causal), 1e-5)
+        log(f"  prefill edge T{t} causal={causal} prefix {pre}: "
+            f"max_abs_err {err:.3e}")
+        if not ok:
+            fail(f"prefill edge case T{t} causal={causal}: err {err}")
+    # prefix tokens see each other bidirectionally
+    q = _randn(gen, (1, 64, 2, 32), torch.float32, "cuda")
+    k = _randn(gen, (1, 64, 2, 32), torch.float32, "cuda")
+    v = _randn(gen, (1, 64, 2, 32), torch.float32, "cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    no_pre = prefill_attention_cuda(q, k, v, zero)
+    with_pre = prefill_attention_cuda(q, k, v, zero + 16)
+    if torch.allclose(no_pre[0, 0], with_pre[0, 0]):
+        fail("prefix_len did not change token 0's attention")
+
+
+def check_chunk_split_bitwise(gen) -> None:
+    """A token's prefill output must not depend on how its prompt was
+    split into chunks (q_offset) -- bitwise."""
+    import torch
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    b, t, s, h, kv, d = 2, 200, 256, 8, 2, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn(gen, (b, t, h, d), dtype, "cuda")
+        k = _randn(gen, (b, s, kv, d), dtype, "cuda")
+        v = _randn(gen, (b, s, kv, d), dtype, "cuda")
+        whole = prefill_attention_cuda(q, k, v)
+        for cuts in ((0, 48, 112, 200), (0, 1, 77, 130, 200), (0, 64, 200)):
+            for a, e in zip(cuts[:-1], cuts[1:]):
+                off = torch.full((b,), a, dtype=torch.int32, device="cuda")
+                part = prefill_attention_cuda(q[:, a:e].contiguous(), k, v,
+                                              None, off)
+                if not torch.equal(part, whole[:, a:e]):
+                    fail(f"prefill {dtype_name(dtype)}: chunk [{a},{e}) of "
+                         f"split {cuts} differs from the whole prompt")
+        log(f"  chunk-split bitwise {dtype_name(dtype)}: identical over 3 "
+            "splittings")
+
+
+def bench_main_shapes(gen) -> dict:
+    """Kernel vs plain vs library at the serving phase's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    dt = torch.bfloat16
+    el = 2
+    h, kv, d = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"]
+    s, layers, b = MAIN["cache_len"], MAIN["layers"], MAIN["device_slots"]
+    out = {}
+
+    # decode: one call per layer over the stacked cache (G, B, S, KV, D),
+    # rotating layers so K/V come from HBM as in a real step
+    kc = _randn(gen, (layers, b, s, kv, d), dt, "cuda")
+    vc = _randn(gen, (layers, b, s, kv, d), dt, "cuda")
+    q = _randn(gen, (b, h, d), dt, "cuda")
+    lengths = torch.randint(MAIN["prompt_len"] + 1,
+                            MAIN["prompt_len"] + MAIN["output_len"] + 1, (b,),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    got = decode_attention_cuda(q, kc[0], vc[0], lengths)
+    err, ok = close(got, ref.decode_attention_ref(q, kc[0], vc[0], lengths),
+                    TOL["decode", "bfloat16"])
+    if not ok:
+        fail(f"decode at main shape: err {err}")
+    layer = [0]
+
+    def rot(fn):
+        def call():
+            g = layer[0] % layers
+            layer[0] += 1
+            return fn(kc[g], vc[g])
+        return call
+
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    times = _times(
+        rot(lambda k, v: decode_attention_cuda(q, k, v, lengths)),
+        rot(lambda k, v: ref.decode_attention_ref(q, k, v, lengths)),
+        rot(lambda k, v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)))
+    n_pos = int(lengths.sum())
+    nbytes = 2 * n_pos * kv * d * el + 2 * b * h * d * el + 4 * b
+    flops = 4 * n_pos * h * d
+    out["decode_attention"] = _record(
+        "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:99", err, times, nbytes,
+        flops, "bfloat16",
+        f"B{b} H{h} KV{kv} D{d} S{s} lengths {lengths.tolist()} bf16")
+
+    # prefill: one admission bucket -- 8 prompts of 128 into a 512 cache
+    pb, t = MAIN["requests"], MAIN["prompt_len"]
+    q = _randn(gen, (pb, t, h, d), dt, "cuda")
+    k = _randn(gen, (pb, s, kv, d), dt, "cuda")
+    v = _randn(gen, (pb, s, kv, d), dt, "cuda")
+    off = torch.zeros((pb,), dtype=torch.int32, device="cuda")
+    got = prefill_attention_cuda(q, k, v, None, off)
+    err, ok = close(got, ref.prefill_attention_ref(q, k, v, None, off),
+                    TOL["prefill", "bfloat16"])
+    if not ok:
+        fail(f"prefill at main shape: err {err}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    times = _times(
+        lambda: prefill_attention_cuda(q, k, v, None, off),
+        lambda: ref.prefill_attention_ref(q, k, v, None, off),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True))
+    pairs = pb * t * (t + 1) // 2              # visible (query, key) pairs
+    nbytes = 2 * pb * t * h * d * el + 2 * pb * t * kv * d * el
+    flops = 4 * pairs * h * d
+    out["prefill_attention"] = _record(
+        "prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:128", err, times, nbytes,
+        flops, "bfloat16",
+        f"B{pb} T{t} S{s} H{h} KV{kv} D{d} q_offset 0 bf16")
+    return out
+
+
+def _times(kernel, plain, library) -> dict:
+    """Device time per call of the kernel, its plain version and the
+    library call (profiler; event-timed calls where it reports nothing),
+    and their event-timed per-call times with host enqueue."""
+    out = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain),
+                    ("library_ms", library)):
+        per_call = time_ms(fn)
+        dev = device_ms(fn)
+        if dev is None:
+            log(f"  {key}: the profiler reported no device time; using "
+                "the event-timed per-call time")
+        out[key] = dev if dev is not None else per_call
+        out[key + "_per_call"] = per_call
+    return out
+
+
+def _record(name, source, replaces, err, times, nbytes, flops, dt,
+            shape) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    ms = times["ms"]
+    log(f"  {name} @ {shape}: device time per call: kernel {ms:.5f} ms, "
+        f"plain {times['plain_ms']:.5f} ms, sdpa {times['library_ms']:.5f} "
+        f"ms; with host enqueue: {times['ms_per_call']:.5f} / "
+        f"{times['plain_ms_per_call']:.5f} / "
+        f"{times['library_ms_per_call']:.5f} ms; bound {bound:.5f} ms "
+        f"({by}: {nbytes} B, {flops} flop), kernel at "
+        f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": times["plain_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": times["library_ms"]}
+
+
+def phase_kernels() -> dict:
+    import torch
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build()
+    log(f"built {', '.join(build.KERNELS)} with nvcc in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  [{name}] {line.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    check_sweeps(gen)
+    check_chunk_split_bitwise(gen)
+    torch.cuda.synchronize()
+    return bench_main_shapes(gen)
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+
+def phase_exactness() -> None:
+    """Raw prefill+decode, engine device rows and host-offloaded rows give
+    identical greedy tokens (llama3.1-8b family, d_model 256, fp32)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_decode_state,
+                                    init_params, prefill)
+    from repro_torch.serving import InferenceServer, Request, ServerConfig
+    cfg = dataclasses.replace(
+        get_config("llama3.1-8b").reduced(layers=4, d_model=256, vocab=512),
+        param_dtype="float32", compute_dtype="float32")
+    prompt = [5, 42, 7, 1, 99, 3, 17, 56]
+    n_new = 8
+    for seed in range(16):
+        params = init_params(cfg, seed=seed, device="cuda")
+        state = init_decode_state(cfg, device_batch=1, cache_len=64,
+                                  device="cuda")
+        logits, state = prefill(params, cfg, {"tokens": torch.tensor(
+            [prompt], device="cuda")}, state)
+        toks, gaps = [], []
+        for i in range(n_new):
+            top2 = torch.topk(logits[0].float(), 2).values
+            gaps.append(float(top2[0] - top2[1]))
+            toks.append(int(logits[0].argmax()))
+            if i + 1 < n_new:
+                logits, state, _, _ = decode_step(
+                    params, cfg, torch.tensor([toks[-1]], device="cuda"),
+                    state)
+        if min(gaps) > 1e-3:
+            break
+        log(f"  seed {seed}: smallest top-2 gap {min(gaps):.2e} <= 1e-3, "
+            "next seed")
+    else:
+        fail("no seed in 0..15 has every top-2 logit gap above 1e-3")
+    with InferenceServer(cfg, params, ServerConfig(
+            device_slots=1, host_slots=2, cache_len=64)) as server:
+        h1 = server.submit(Request(prompt=list(prompt), max_new_tokens=n_new))
+        h2 = server.submit(list(prompt), max_new_tokens=n_new)
+        host_stream = list(h2.tokens())
+        server.run_until_idle()
+        stats = server.stats
+    log(f"  {cfg.name} fp32 seed {seed}: raw {toks}")
+    log(f"  device row {h1.output}; host row {host_stream} "
+        f"(host tokens {stats.host_tokens}); smallest top-2 gap "
+        f"{min(gaps):.3e}")
+    if stats.host_tokens == 0:
+        fail("the exactness run never offloaded")
+    if not (h1.output == toks and host_stream == toks):
+        fail("device, host-offloaded and raw greedy tokens differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+
+def _serve_once(cfg, params, scfg, prompts, output_len):
+    import torch
+    from repro_torch.serving import InferenceServer, Request
+    from repro_torch.serving.engine import Engine
+    nan = torch.zeros((), dtype=torch.bool, device="cuda")
+    commit, prefill = Engine._commit_device, Engine.prefill
+
+    def commit_checked(self, logits, rows):       # device-side flag, no sync
+        nan.logical_or_(torch.isnan(logits).any())
+        return commit(self, logits, rows)
+
+    def prefill_checked(self, tokens, plens):
+        logits, sub = prefill(self, tokens, plens)
+        nan.logical_or_(torch.isnan(logits).any())
+        return logits, sub
+
+    Engine._commit_device, Engine.prefill = commit_checked, prefill_checked
+    try:
+        with InferenceServer(cfg, params, scfg) as server:
+            reqs = [Request(prompt=list(p), max_new_tokens=output_len)
+                    for p in prompts]
+            t0 = time.perf_counter()
+            for r in reqs:
+                server.submit(r)
+            stats = server.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        Engine._commit_device, Engine.prefill = commit, prefill
+    return reqs, stats, wall, bool(nan)
+
+
+def _traced_window(cfg, params, scfg, prompts, output_len, iters=40):
+    """A separate traced run: ``iters`` engine iterations in steady decode
+    under ``torch.profiler``.  Returns (device-busy share of the wall
+    time, wall ms per iteration, top kernels by device time).  Kernels on
+    the executor's copy stream may overlap others, so the share is an
+    upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import InferenceServer, Request
+    with InferenceServer(cfg, params, scfg) as server:
+        for p in prompts:
+            server.submit(Request(prompt=list(p), max_new_tokens=output_len))
+        for _ in range(3):                    # admission + first decodes
+            server.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                server.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us
+    busy = sum(per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return busy / wall, 1e3 * wall / iters, top
+
+
+def phase_serving() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import StrategyKind
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServerConfig
+    cfg = get_config("llama3.1-8b")
+    log(f"  {cfg.name} as published: d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.num_layers} layers, {cfg.param_dtype}; "
+        "no depth cut")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  random weights from torch.Generator(seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    plen, out_len = MAIN["prompt_len"], MAIN["output_len"]
+    page_size = 32
+    pages_per_resident = (-(-(plen + out_len) // page_size)) * cfg.num_layers
+    scfg = ServerConfig(device_slots=MAIN["device_slots"],
+                        host_slots=MAIN["host_slots"],
+                        cache_len=MAIN["cache_len"], page_size=page_size,
+                        host_pool_pages=pages_per_resident
+                        * MAIN["host_slots"], device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, plen).tolist()
+               for _ in range(MAIN["requests"])]
+    # warm-up: one short request through its own server (cuBLAS handles,
+    # first launches); not part of the measured run
+    _serve_once(cfg, params, scfg, prompts[:1], 2)
+    torch.cuda.synchronize()
+    decode_attention_cuda.launches = 0
+    prefill_attention_cuda.launches = 0
+    reqs, stats, wall, saw_nan = _serve_once(cfg, params, scfg, prompts,
+                                             out_len)
+    launches = {"decode_attention": decode_attention_cuda.launches,
+                "prefill_attention": prefill_attention_cuda.launches}
+    pool_bytes = scfg.host_pool_pages * page_size * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 4 * 2
+    log(f"  {len(reqs)} requests x prompt {plen} -> {out_len} tokens in "
+        f"{wall:.3f} s wall: {stats.iterations} iterations "
+        f"({stats.iterations / wall:.2f} decode iters/s), "
+        f"{(stats.device_tokens + stats.host_tokens) / wall:.2f} output "
+        f"tokens/s (device {stats.device_tokens}, host {stats.host_tokens} "
+        f"decoded; prefill emits the first token of each)")
+    log(f"  TTFT p50 {stats.ttft_p50 * 1e3:.1f} ms, p95 "
+        f"{stats.ttft_p95 * 1e3:.1f} ms; ITL p50 "
+        f"{(stats.itl_p50 or 0) * 1e3:.1f} ms; host busy "
+        f"{stats.host_busy_time:.3f} s (transfer "
+        f"{stats.host_transfer_time:.3f} s); strategies "
+        f"{stats.strategy_counts}")
+    log(f"  launches {launches}; host pool {scfg.host_pool_pages} pages = "
+        f"{pool_bytes / 2**20:.0f} MiB; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    share, ms_iter, top = _traced_window(cfg, params, scfg, prompts, out_len)
+    log(f"  traced window (40 iterations, separate run): {ms_iter:.2f} ms "
+        f"per iteration, device busy {100 * share:.1f}% of wall "
+        f"(idle {100 * (1 - share):.1f}%); top kernels by device time:")
+    for key, us in top:
+        log(f"    {us / 40 / 1e3:8.3f} ms/iter  {key[:100]}")
+    bad = [r.request_id for r in reqs
+           if r.failed or len(r.output) != out_len]
+    if bad:
+        fail(f"requests {bad} did not finish with {out_len} tokens")
+    if saw_nan:
+        fail("a logit was NaN")
+    if stats.host_tokens <= 0:
+        fail("no token was decoded on the host tier")
+    hybrid = sum(n for k, n in stats.strategy_counts.items()
+                 if k != StrategyKind.GPU_ONLY.value)
+    if hybrid < 1:
+        fail(f"Algorithm 1 took no hybrid decision: {stats.strategy_counts}")
+    device_iters = max(len(r.output) - 1 for r in reqs if r.tier == "device")
+    if launches["decode_attention"] < cfg.num_attn_layers * device_iters:
+        fail(f"decode kernel launched {launches['decode_attention']} times "
+             f"over {device_iters} device-row iterations")
+    if launches["prefill_attention"] < cfg.num_attn_layers:
+        fail(f"prefill kernel launched {launches['prefill_attention']} "
+             "times")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+
+def phase_cli() -> None:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.strip().splitlines()[-6:]:
+        log(f"  | {line}")
+    if proc.returncode != 0:
+        log(proc.stderr[-3000:])
+        fail(f"python -m repro_torch.launch.serve exited {proc.returncode}")
+    log(f"  launch.serve with its defaults: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+PHASES = ("env", "kernels", "exactness", "serving", "cli")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma list out of {PHASES}")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"FAIL: the repro_torch package is not beside this script "
+              f"({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("== environment")
+    env = phase_env()
+    records = {}
+    if "kernels" in phases:
+        log("== kernels against their plain versions")
+        records = phase_kernels()
+    if "exactness" in phases:
+        log("== exactness at a reduced size")
+        phase_exactness()
+    launches = None
+    if "serving" in phases:
+        log("== serving llama3.1-8b at published width")
+        launches = phase_serving()
+    if "cli" in phases:
+        log("== python -m repro_torch.launch.serve")
+        phase_cli()
+    if records and launches is not None:
+        for name, rec in records.items():
+            rec["launches"] = launches[name]
+        print(json.dumps({"kernels": list(records.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": env["name"],
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports only the port
+(no JAX), so it also runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+torch = pytest.importorskip("torch")  # the port needs PyTorch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 1e-5)])
+def test_decode_kernel_matches_plain(gen, q_dtype, kv_dtype, tol):
+    b, h, kv, d, s = 3, 32, 8, 128, 512
+    q = _randn(gen, (b, h, d), q_dtype)
+    k = _randn(gen, (b, s, kv, d), kv_dtype)
+    v = _randn(gen, (b, s, kv, d), kv_dtype)
+    lengths = torch.tensor([1, 200, 512], dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, lengths)
+    torch.testing.assert_close(out.float(),
+                               ref.decode_attention_ref(q, k, v,
+                                                        lengths).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 3e-2),
+    (torch.float32, torch.bfloat16, 1e-5)])
+def test_prefill_kernel_matches_plain_and_is_split_invariant(gen, q_dtype,
+                                                             kv_dtype, tol):
+    b, t, s, h, kv, d = 2, 150, 256, 8, 2, 64
+    q = _randn(gen, (b, t, h, d), q_dtype)
+    k = _randn(gen, (b, s, kv, d), kv_dtype)
+    v = _randn(gen, (b, s, kv, d), kv_dtype)
+    whole = prefill_attention_cuda(q, k, v)
+    torch.testing.assert_close(whole.float(),
+                               ref.prefill_attention_ref(q, k, v).float(),
+                               atol=tol, rtol=tol)
+    off = torch.full((b,), 70, dtype=torch.int32, device="cuda")
+    tail = prefill_attention_cuda(q[:, 70:].contiguous(), k, v, None, off)
+    assert torch.equal(tail, whole[:, 70:])
