@@ -9,17 +9,22 @@ Phases (any failure exits non-zero):
      (sm_90a), holds each against its plain PyTorch version over the
      reference sweeps and at the main-path shapes, checks that prefill
      output is bitwise independent of how a prompt is split, and times
-     kernel, plain version and one library call against the card's bound;
-  3. exactness: llama3.1-8b reduced to d_model 256 in fp32 -- greedy tokens
-     from raw prefill+decode, engine device rows and host-offloaded rows
-     must be identical;
+     kernel, plain version and one library call (where one exists)
+     against the card's bound;
+  3. exactness: llama3.1-8b and the dense-FFN Jamba hybrid, each reduced
+     to d_model 256 in fp32 -- greedy tokens from raw prefill+decode,
+     engine device rows and host-offloaded rows must be identical;
   4. serving: InferenceServer on llama3.1-8b at its published width (bf16,
      random weights from a seed), 8 requests over 4 device + 4 host slots;
-  5. cli: ``python -m repro_torch.launch.serve`` with its defaults.
+  5. serving-hybrid: the same traffic on Jamba-1.5-Large with dense FFNs
+     at its published width, depth cut to 2 periods (16 layers);
+  6. cli: ``python -m repro_torch.launch.serve`` with its defaults.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
-``kernels`` record needs the serving phase for its launch counts).
+``kernels`` record needs the serving phases for its launch counts; each
+serving phase zeroes the launch counts just before its measured run and
+reads them just after).
 """
 from __future__ import annotations
 
@@ -39,6 +44,9 @@ SRC = ROOT / "src"
 # tensor-core / CUDA-core rates.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# exp() results per second: 16 per SM per clock on the special function
+# units (Hopper white paper) x 132 SMs x 1.98 GHz boost clock
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 DECODE_SWEEP = [            # (B, H, KV, D, S) -- tests/test_kernels.py
     (1, 4, 4, 64, 128),
@@ -56,13 +64,24 @@ CHUNK_SWEEP = [             # (B, T_chunk, S_cache, H, KV, D)
     (2, 64, 160, 4, 2, 64),
     (1, 32, 96, 4, 1, 64),
 ]
+SCAN_SWEEP = [              # (B, T, I, N) -- tests/test_kernels.py
+    (1, 16, 64, 8),
+    (2, 33, 128, 16),
+    (2, 64, 256, 16),
+]
 TOL = {("decode", "float32"): 1e-5, ("decode", "bfloat16"): 2e-2,
-       ("prefill", "float32"): 1e-5, ("prefill", "bfloat16"): 3e-2}
+       ("prefill", "float32"): 1e-5, ("prefill", "bfloat16"): 3e-2,
+       ("scan", "float32"): 1e-5, ("scan", "bfloat16"): 3e-2}
 
 # main-path shapes of llama3.1-8b in the serving phase
 MAIN = dict(heads=32, kv_heads=8, head_dim=128, layers=32, cache_len=512,
             device_slots=4, host_slots=4, prompt_len=128, output_len=16,
             requests=8)
+# the selective scan in the hybrid serving phase (Jamba: inner 2 x 8192,
+# N 16, 14 Mamba layers): prefill of one bucket of 8 prompts of 128, and
+# decode of 4 device + 4 host rows
+SCAN_MAIN = dict(inner=16384, state=16, mamba_layers=14, rows=8,
+                 prompt_len=128)
 
 
 def log(msg: str) -> None:
@@ -263,6 +282,152 @@ def check_chunk_split_bitwise(gen) -> None:
             "splittings")
 
 
+def _scan_case(gen, b, t, i, n, dtype, h0_scale=0.5):
+    import torch
+    import torch.nn.functional as F
+    dt = F.softplus(_randn(gen, (b, t, i), torch.float32, "cuda")).to(dtype)
+    x = _randn(gen, (b, t, i), dtype, "cuda")
+    bb = _randn(gen, (b, t, n), dtype, "cuda")
+    cc = _randn(gen, (b, t, n), dtype, "cuda")
+    a_neg = -torch.exp(_randn(gen, (i, n), torch.float32, "cuda"))
+    d_skip = _randn(gen, (i,), torch.float32, "cuda")
+    h0 = h0_scale * _randn(gen, (b, i, n), torch.float32, "cuda")
+    return dt, x, bb, cc, a_neg, d_skip, h0
+
+
+def check_scan(gen) -> None:
+    """The selective-scan kernel against its plain version: the reference
+    sweep, right-padded rows (with a row of length 0, over a ragged
+    inner dim), and h0 carried across two calls."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = dtype_name(dtype)
+        tol = TOL["scan", dn]
+        for b, t, i, n in SCAN_SWEEP:
+            args = _scan_case(gen, b, t, i, n, dtype, h0_scale=0.0)
+            ys, hs = mamba_selective_scan_cuda(*args)
+            yr, hr = ref.mamba_selective_scan_ref(*args)
+            err = max(close(ys, yr, tol)[0], close(hs, hr, tol)[0])
+            log(f"  scan    {dn:8s} B{b} T{t} I{i} N{n}: max_abs_err "
+                f"{err:.3e}")
+            if not (close(ys, yr, tol)[1] and close(hs, hr, tol)[1]):
+                fail(f"mamba_scan {dn} {(b, t, i, n)} err {err}")
+        b, t, i, n = 4, 33, 200, 16
+        args = _scan_case(gen, b, t, i, n, dtype)
+        lens = torch.tensor([33, 20, 0, 1], dtype=torch.int32, device="cuda")
+        ys, hs = mamba_selective_scan_cuda(*args, lens)
+        yr, hr = ref.mamba_selective_scan_ref(*args, lens)
+        err = max(close(ys, yr, tol)[0], close(hs, hr, tol)[0])
+        log(f"  scan    {dn:8s} lens {lens.tolist()} B{b} T{t} I{i} N{n}: "
+            f"max_abs_err {err:.3e}")
+        if not (close(ys, yr, tol)[1] and close(hs, hr, tol)[1]):
+            fail(f"mamba_scan {dn} with lens: err {err}")
+        if not torch.equal(hs[2], args[6][2]):
+            fail(f"mamba_scan {dn}: a row of length 0 changed its state")
+        one = [v[3:4, :1].contiguous() for v in args[:4]]
+        _, h_one = mamba_selective_scan_cuda(*one, *args[4:6],
+                                             args[6][3:4].contiguous())
+        if not torch.equal(h_one[0], hs[3]):
+            fail(f"mamba_scan {dn}: a padded row's state differs from its "
+                 "unpadded run")
+        # h0 threading: two halves == one call
+        b, t, i, n = 1, 32, 64, 8
+        args = _scan_case(gen, b, t, i, n, dtype)
+        y_full, h_full = mamba_selective_scan_cuda(*args)
+        half = [v[:, :16].contiguous() for v in args[:4]]
+        rest = [v[:, 16:].contiguous() for v in args[:4]]
+        y1, h_mid = mamba_selective_scan_cuda(*half, *args[4:])
+        y2, h_end = mamba_selective_scan_cuda(*rest, *args[4:6], h_mid)
+        if not (torch.equal(torch.cat([y1, y2], 1), y_full)
+                and torch.equal(h_end, h_full)):
+            fail(f"mamba_scan {dn}: h0 carried across calls differs from "
+                 "one call")
+        log(f"  scan    {dn:8s} padded row == unpadded run, h0 carry == one "
+            "call: bitwise")
+
+
+def bench_scan(gen) -> dict:
+    """Kernel vs plain version at the hybrid serving phase's two shapes;
+    no single PyTorch call computes a selective scan (library: none)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
+    i, n, layers = SCAN_MAIN["inner"], SCAN_MAIN["state"], \
+        SCAN_MAIN["mamba_layers"]
+    b, plen = SCAN_MAIN["rows"], SCAN_MAIN["prompt_len"]
+    out = {}
+    for shape, t in (("prefill", plen), ("decode", 1)):
+        args = _scan_case(gen, b, t, i, n, torch.float32)
+        lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        ys, hs = mamba_selective_scan_cuda(*args, lens)
+        yr, hr = ref.mamba_selective_scan_ref(*args, lens)
+        err = max(close(ys, yr, TOL["scan", "float32"])[0],
+                  close(hs, hr, TOL["scan", "float32"])[0])
+        if not (close(ys, yr, 1e-5)[1] and close(hs, hr, 1e-5)[1]):
+            fail(f"mamba_scan at the {shape} shape: err {err}")
+        # one (a_neg, d_skip, h0) per Mamba layer, rotated, so the state
+        # comes from HBM as in a real step (14 x 8.4 MB > the 50 MB L2)
+        per_layer = [(-torch.exp(_randn(gen, (i, n), torch.float32, "cuda")),
+                      _randn(gen, (i,), torch.float32, "cuda"),
+                      0.5 * _randn(gen, (b, i, n), torch.float32, "cuda"))
+                     for _ in range(layers)]
+        layer = [0]
+
+        def rot(fn):
+            def call():
+                a, d, h0 = per_layer[layer[0] % layers]
+                layer[0] += 1
+                return fn(*args[:4], a, d, h0, lens)
+            return call
+
+        times = {}
+        for key, fn in (("ms", rot(mamba_selective_scan_cuda)),
+                        ("plain_ms", rot(ref.mamba_selective_scan_ref))):
+            per_call = time_ms(fn, reps=20 if t > 1 else 100)
+            dev = device_ms(fn)
+            times[key] = dev if dev is not None else per_call
+            times[key + "_per_call"] = per_call
+        el = 4
+        nbytes = (2 * b * t * i * el + 2 * b * t * n * el   # dt, x, b, c
+                  + i * n * 4 + i * 4 + b * i * n * 4 + b * 4   # A, D, h0, lens
+                  + b * t * i * 4 + b * i * n * 4)           # y, h_final
+        exps = b * t * i * n
+        flops = 5 * exps          # dt*A, *h, +dt*x*b, h*c, sum
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_exp = exps / PEAK_EXP_PER_S * 1e3
+        t_flop = flops / PEAK_FLOPS["float32"] * 1e3
+        bound = max(t_bytes, t_exp, t_flop)
+        by = "bytes" if t_bytes >= max(t_exp, t_flop) else "operations"
+        ms = times["ms"]
+        log(f"  mamba_selective_scan @ {shape} B{b} T{t} I{i} N{n} fp32: "
+            f"device time per call: kernel {ms:.5f} ms, plain "
+            f"{times['plain_ms']:.5f} ms; with host enqueue "
+            f"{times['ms_per_call']:.5f} / {times['plain_ms_per_call']:.5f} "
+            f"ms; bound {bound:.5f} ms ({by}; bytes {nbytes} B -> "
+            f"{t_bytes:.5f} ms, exp {exps} -> {t_exp:.5f} ms, fp32 "
+            f"{flops} flop -> {t_flop:.5f} ms), kernel at "
+            f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e}")
+        out[shape] = {"ms": ms, "plain_ms": times["plain_ms"],
+                      "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+                      "bytes": nbytes, "exp": exps}
+    # the record: the decode shape (14 launches every iteration), with
+    # the prefill shape (14 per admission bucket) beside it
+    dec = out["decode"]
+    return {"name": "mamba_selective_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:87", "launches": 0,
+            "max_abs_err": max(dec["max_abs_err"],
+                               out["prefill"]["max_abs_err"]),
+            "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "library_ms": None,
+            "shape": f"decode B{b} T1 I{i} N{n} fp32",
+            "prefill_shape": dict(out["prefill"],
+                                  shape=f"B{b} T{plen} I{i} N{n} fp32")}
+
+
 def bench_main_shapes(gen) -> dict:
     """Kernel vs plain vs library at the serving phase's shapes."""
     import torch
@@ -394,8 +559,11 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_sweeps(gen)
     check_chunk_split_bitwise(gen)
+    check_scan(gen)
     torch.cuda.synchronize()
-    return bench_main_shapes(gen)
+    records = bench_main_shapes(gen)
+    records["mamba_selective_scan"] = bench_scan(gen)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -403,18 +571,23 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_exactness() -> None:
-    """Raw prefill+decode, engine device rows and host-offloaded rows give
-    identical greedy tokens (llama3.1-8b family, d_model 256, fp32)."""
+def hybrid_config(**kw):
+    """Jamba-1.5-Large with dense FFNs (the MoE FFN is not ported)."""
     import dataclasses
-    import torch
     from repro_torch.configs import get_config
+    from repro_torch.models.config import FFNKind
+    return dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                               ffn_kind=FFNKind.DENSE, moe=None, **kw)
+
+
+def _exactness(cfg) -> None:
+    """Raw prefill+decode, an engine device row and a host-offloaded row
+    give identical greedy tokens (fp32 model, bf16 KV cache).  Seeds are
+    scanned until every top-2 logit gap exceeds 1e-3."""
+    import torch
     from repro_torch.models import (decode_step, init_decode_state,
                                     init_params, prefill)
     from repro_torch.serving import InferenceServer, Request, ServerConfig
-    cfg = dataclasses.replace(
-        get_config("llama3.1-8b").reduced(layers=4, d_model=256, vocab=512),
-        param_dtype="float32", compute_dtype="float32")
     prompt = [5, 42, 7, 1, 99, 3, 17, 56]
     n_new = 8
     for seed in range(16):
@@ -455,6 +628,19 @@ def phase_exactness() -> None:
         fail("device, host-offloaded and raw greedy tokens differ")
 
 
+def phase_exactness() -> None:
+    """llama3.1-8b and the dense-FFN Jamba hybrid (16 layers, attention
+    at 3 and 11), each reduced to d_model 256 in fp32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    _exactness(dataclasses.replace(
+        get_config("llama3.1-8b").reduced(layers=4, d_model=256, vocab=512),
+        **fp32))
+    _exactness(dataclasses.replace(
+        hybrid_config().reduced(d_model=256, vocab=512), **fp32))
+
+
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
@@ -466,12 +652,14 @@ def _serve_once(cfg, params, scfg, prompts, output_len):
     from repro_torch.serving.engine import Engine
     nan = torch.zeros((), dtype=torch.bool, device="cuda")
     commit, prefill = Engine._commit_device, Engine.prefill
+    buckets = [0]
 
     def commit_checked(self, logits, rows):       # device-side flag, no sync
         nan.logical_or_(torch.isnan(logits).any())
         return commit(self, logits, rows)
 
     def prefill_checked(self, tokens, plens):
+        buckets[0] += 1
         logits, sub = prefill(self, tokens, plens)
         nan.logical_or_(torch.isnan(logits).any())
         return logits, sub
@@ -489,10 +677,10 @@ def _serve_once(cfg, params, scfg, prompts, output_len):
             wall = time.perf_counter() - t0
     finally:
         Engine._commit_device, Engine.prefill = commit, prefill
-    return reqs, stats, wall, bool(nan)
+    return reqs, stats, wall, bool(nan), buckets[0]
 
 
-def _traced_window(cfg, params, scfg, prompts, output_len, iters=40):
+def _traced_window(cfg, params, scfg, prompts, output_len, iters):
     """A separate traced run: ``iters`` engine iterations in steady decode
     under ``torch.profiler``.  Returns (device-busy share of the wall
     time, wall ms per iteration, top kernels by device time).  Kernels on
@@ -525,20 +713,29 @@ def _traced_window(cfg, params, scfg, prompts, output_len, iters=40):
     return busy / wall, 1e3 * wall / iters, top
 
 
-def phase_serving() -> dict:
+def _kernel_wrappers() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    return {"decode_attention": decode_attention_cuda,
+            "prefill_attention": prefill_attention_cuda,
+            "mamba_selective_scan": mamba_selective_scan_cuda}
+
+
+def _serve_published(cfg, traced_iters: int) -> dict:
+    """Serve MAIN's traffic on ``cfg`` (random bf16 weights, seed 0)
+    through InferenceServer; print the end-to-end numbers and fail on a
+    wrong run.  Returns each kernel's launches over the measured run."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.scheduler import StrategyKind
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
     from repro_torch.models import init_params
+    from repro_torch.models.config import BlockKind
     from repro_torch.serving import ServerConfig
-    cfg = get_config("llama3.1-8b")
-    log(f"  {cfg.name} as published: d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.num_layers} layers, {cfg.param_dtype}; "
-        "no depth cut")
+    log(f"  {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.num_layers} layers (attention at {cfg.attn_layer_indices}), "
+        f"{cfg.param_dtype}, {cfg.param_count() / 1e9:.2f} B parameters")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -547,7 +744,9 @@ def phase_serving() -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     plen, out_len = MAIN["prompt_len"], MAIN["output_len"]
     page_size = 32
-    pages_per_resident = (-(-(plen + out_len) // page_size)) * cfg.num_layers
+    # one resident's pages over every attention layer
+    pages_per_resident = (-(-(plen + out_len) // page_size)) \
+        * cfg.num_attn_layers
     scfg = ServerConfig(device_slots=MAIN["device_slots"],
                         host_slots=MAIN["host_slots"],
                         cache_len=MAIN["cache_len"], page_size=page_size,
@@ -560,12 +759,13 @@ def phase_serving() -> dict:
     # first launches); not part of the measured run
     _serve_once(cfg, params, scfg, prompts[:1], 2)
     torch.cuda.synchronize()
-    decode_attention_cuda.launches = 0
-    prefill_attention_cuda.launches = 0
-    reqs, stats, wall, saw_nan = _serve_once(cfg, params, scfg, prompts,
-                                             out_len)
-    launches = {"decode_attention": decode_attention_cuda.launches,
-                "prefill_attention": prefill_attention_cuda.launches}
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    reqs, stats, wall, saw_nan, buckets = _serve_once(cfg, params, scfg,
+                                                      prompts, out_len)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     pool_bytes = scfg.host_pool_pages * page_size * cfg.num_kv_heads \
         * cfg.resolved_head_dim * 4 * 2
     log(f"  {len(reqs)} requests x prompt {plen} -> {out_len} tokens in "
@@ -580,15 +780,17 @@ def phase_serving() -> dict:
         f"{stats.host_busy_time:.3f} s (transfer "
         f"{stats.host_transfer_time:.3f} s); strategies "
         f"{stats.strategy_counts}")
-    log(f"  launches {launches}; host pool {scfg.host_pool_pages} pages = "
-        f"{pool_bytes / 2**20:.0f} MiB; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    share, ms_iter, top = _traced_window(cfg, params, scfg, prompts, out_len)
-    log(f"  traced window (40 iterations, separate run): {ms_iter:.2f} ms "
-        f"per iteration, device busy {100 * share:.1f}% of wall "
-        f"(idle {100 * (1 - share):.1f}%); top kernels by device time:")
+    log(f"  launches {launches} over {buckets} admission bucket(s); host "
+        f"pool {scfg.host_pool_pages} pages = {pool_bytes / 2**20:.0f} MiB; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    share, ms_iter, top = _traced_window(cfg, params, scfg, prompts, out_len,
+                                         traced_iters)
+    log(f"  traced window ({traced_iters} iterations, separate run): "
+        f"{ms_iter:.2f} ms per iteration, device busy {100 * share:.1f}% of "
+        f"wall (idle {100 * (1 - share):.1f}%); top kernels by device time:")
     for key, us in top:
-        log(f"    {us / 40 / 1e3:8.3f} ms/iter  {key[:100]}")
+        log(f"    {us / traced_iters / 1e3:8.3f} ms/iter  {key[:100]}")
     bad = [r.request_id for r in reqs
            if r.failed or len(r.output) != out_len]
     if bad:
@@ -602,13 +804,30 @@ def phase_serving() -> dict:
     if hybrid < 1:
         fail(f"Algorithm 1 took no hybrid decision: {stats.strategy_counts}")
     device_iters = max(len(r.output) - 1 for r in reqs if r.tier == "device")
-    if launches["decode_attention"] < cfg.num_attn_layers * device_iters:
-        fail(f"decode kernel launched {launches['decode_attention']} times "
-             f"over {device_iters} device-row iterations")
-    if launches["prefill_attention"] < cfg.num_attn_layers:
-        fail(f"prefill kernel launched {launches['prefill_attention']} "
-             "times")
+    n_attn = cfg.num_attn_layers
+    n_mamba = sum(k == BlockKind.MAMBA
+                  for k in cfg.block_pattern) * cfg.num_groups
+    need = {"decode_attention": n_attn * device_iters,
+            "prefill_attention": n_attn * buckets,
+            "mamba_selective_scan": n_mamba * (device_iters + buckets)}
+    for name, n in need.items():
+        if launches[name] < n:
+            fail(f"{name} launched {launches[name]} times; the path needs "
+                 f"at least {n} ({device_iters} device-row iterations, "
+                 f"{buckets} admission buckets)")
     return launches
+
+
+def phase_serving() -> dict:
+    from repro_torch.configs import get_config
+    return _serve_published(get_config("llama3.1-8b"), traced_iters=40)
+
+
+def phase_serving_hybrid() -> dict:
+    """Jamba-1.5-Large at published width with dense FFNs (the MoE FFN
+    is not ported; with experts one 8-layer period alone is 90 GB in
+    bf16), depth cut to 2 periods: 14 Mamba + 2 attention layers."""
+    return _serve_published(hybrid_config(num_layers=16), traced_iters=24)
 
 
 # ---------------------------------------------------------------------------
@@ -636,7 +855,7 @@ def phase_cli() -> None:
 # driver
 # ---------------------------------------------------------------------------
 
-PHASES = ("env", "kernels", "exactness", "serving", "cli")
+PHASES = ("env", "kernels", "exactness", "serving", "serving-hybrid", "cli")
 
 
 def main() -> int:
@@ -667,16 +886,23 @@ def main() -> int:
     if "exactness" in phases:
         log("== exactness at a reduced size")
         phase_exactness()
-    launches = None
+    launches = {}       # path -> kernel -> launches over its measured run
     if "serving" in phases:
         log("== serving llama3.1-8b at published width")
-        launches = phase_serving()
+        launches["serving"] = phase_serving()
+    if "serving-hybrid" in phases:
+        log("== serving Jamba-1.5-Large (dense FFN, 16 layers) at published "
+            "width")
+        launches["serving-hybrid"] = phase_serving_hybrid()
     if "cli" in phases:
         log("== python -m repro_torch.launch.serve")
         phase_cli()
-    if records and launches is not None:
+    if records and launches:
         for name, rec in records.items():
-            rec["launches"] = launches[name]
+            by_path = {path: counts[name]
+                       for path, counts in launches.items()}
+            rec["launches"] = sum(by_path.values())
+            rec["launches_by_path"] = by_path
         print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": env["name"],

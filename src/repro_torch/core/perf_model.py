@@ -16,7 +16,7 @@ import math
 from typing import Any, Dict, Optional
 
 from repro_torch.core.analytical import Timings
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import BlockKind, ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +66,8 @@ class ModelCosts:
     kv_bytes_per_pos_layer: int  # per attention layer
     num_attn_layers: int
     bytes_per_param: int = 2
+    state_bytes_per_row: int = 0  # recurrent (SSM/xLSTM) state per request,
+    #                               all layers -- 0 for attention-only stacks
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, bytes_per_param: int = 2,
@@ -83,7 +85,31 @@ class ModelCosts:
             kv_bytes_per_pos_layer=kv_per_layer,
             num_attn_layers=max(cfg.num_attn_layers, 1),
             bytes_per_param=bytes_per_param,
+            state_bytes_per_row=_recurrent_state_bytes(cfg),
         )
+
+
+def _recurrent_state_bytes(cfg: ModelConfig) -> int:
+    """Per-request bytes of recurrent state across the whole stack (row
+    shapes as the states are stored: conv windows bf16, scan carries
+    fp32) -- what a hybrid tier move carries besides the paged KV."""
+    d = cfg.d_model
+    per_entry = 0
+    for kind in cfg.block_pattern:
+        if kind == BlockKind.MAMBA:
+            m = cfg.mamba
+            inner = m.expand * d
+            per_entry += (m.conv_dim - 1) * inner * 2 + inner * m.state_dim * 4
+        elif kind == BlockKind.SLSTM:
+            per_entry += 4 * d * 4                      # c, n, h, m fp32
+        elif kind == BlockKind.MLSTM:
+            inner = 2 * d
+            hd = inner // cfg.num_heads
+            per_entry += (cfg.num_heads * hd * hd * 4   # cmat
+                          + cfg.num_heads * hd * 4      # n
+                          + cfg.num_heads * 4           # m
+                          + 3 * inner * 2)              # conv window bf16
+    return per_entry * cfg.num_groups
 
 
 class AnalyticPerfModel:

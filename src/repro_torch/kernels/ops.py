@@ -1,4 +1,4 @@
-"""Attention entry points the model calls.
+"""Kernel entry points the model calls: attention and the selective scan.
 
 A tensor on the CPU takes the plain PyTorch version in ``ref``; any
 other device goes to the hand-written CUDA kernel, whose wrapper raises
@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import mamba_scan as _scan
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import ref as _ref
 
@@ -34,3 +35,16 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           causal=causal)
     return _pre.prefill_attention_cuda(q, k, v, prefix_len, q_offset,
                                        causal=causal)
+
+
+def mamba_selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, a_neg: torch.Tensor,
+                         d_skip: torch.Tensor, h0: torch.Tensor,
+                         lens: Optional[torch.Tensor] = None):
+    """Selective scan: dt, x (B,T,I); b, c (B,T,N); a_neg (I,N); d_skip
+    (I,); h0 (B,I,N); state frozen past ``lens[b]`` -> (y, h_final) fp32."""
+    if dt.device.type == "cpu":
+        return _ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip, h0,
+                                             lens)
+    return _scan.mamba_selective_scan_cuda(dt, x, b, c, a_neg, d_skip, h0,
+                                           lens)

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each function is the semantic ground truth its hand-written CUDA
 kernel is held against (on the card by ``chip_smoke.py``) and the path
 ``kernels.ops`` takes for tensors on the CPU.  Written the obvious way:
-materialise the full score matrix, mask with -1e30, softmax in fp32.
+attention materialises the full score matrix, masks with -1e30 and takes
+the softmax in fp32; the selective scan is a loop over time.
 """
 from __future__ import annotations
 
@@ -61,3 +62,29 @@ def prefill_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     out = torch.einsum("btkgs,bskd->btkgd", p, v.float())
     return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def mamba_selective_scan_ref(dt: torch.Tensor, x: torch.Tensor,
+                             b: torch.Tensor, c: torch.Tensor,
+                             a_neg: torch.Tensor, d_skip: torch.Tensor,
+                             h0: torch.Tensor,
+                             lens: Optional[torch.Tensor] = None):
+    """Mamba-1 selective scan.  dt, x (B,T,I); b, c (B,T,N); a_neg (I,N);
+    d_skip (I,); h0 (B,I,N); lens (B,) or None (every token real).
+
+    h advances only while t < lens[b]; y_t is taken from the pre-freeze
+    h_new.  Returns (y (B,T,I), h_final (B,I,N)), both fp32."""
+    bsz, t = dt.shape[:2]
+    dt, x, b, c = (v.float() for v in (dt, x, b, c))
+    a_neg, d_skip = a_neg.float(), d_skip.float()
+    if lens is None:
+        lens = torch.full((bsz,), t, dtype=torch.int32, device=dt.device)
+    lens = lens.to(dt.device)
+    h = h0.float()
+    ys = []
+    for i in range(t):
+        da = torch.exp(dt[:, i, :, None] * a_neg[None])
+        h_new = da * h + (dt[:, i] * x[:, i])[..., None] * b[:, i, None, :]
+        ys.append((h_new * c[:, i, None, :]).sum(-1) + d_skip * x[:, i])
+        h = torch.where((i < lens)[:, None, None], h_new, h)
+    return torch.stack(ys, dim=1), h

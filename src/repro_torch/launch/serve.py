@@ -19,7 +19,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.models import init_params
+from repro_torch.models import check_supported, init_params
 from repro_torch.serving import InferenceServer, ServerConfig
 from repro_torch.serving.engine import resolve_device
 from repro_torch.serving.workloads import WORKLOADS
@@ -63,7 +63,6 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    device = resolve_device(args.device)
     base = get_config(args.arch)
     if args.published:
         cfg = base
@@ -74,6 +73,10 @@ def main() -> None:
     else:
         cfg = base.reduced(layers=args.layers or 4, d_model=args.d_model,
                            vocab=512)
+    # an architecture the port cannot run yet (Jamba's MoE FFN) fails here
+    # with the ROADMAP item that brings it, before any device is touched
+    check_supported(cfg)
+    device = resolve_device(args.device)
     scfg = ServerConfig(
         device_slots=args.device_slots, host_slots=args.host_slots,
         cache_len=args.cache_len,

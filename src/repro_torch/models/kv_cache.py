@@ -7,8 +7,9 @@
     host-memory numpy pool, read by the host attention backend for
     offloaded requests (the paper's CPU tier).  fp32 pages only.
 
-``StackState`` bundles the per-pattern-entry states; every leaf carries
-a leading G (pattern groups) axis.
+``StackState`` bundles the per-pattern-entry states (``AttnKV`` for
+attention entries, ``models.ssm.MambaState`` for Mamba entries); every
+leaf carries a leading G (pattern groups) axis.
 """
 from __future__ import annotations
 
@@ -34,9 +35,11 @@ class AttnKV(NamedTuple):
 class StackState:
     """Decode state of the whole block stack.
 
-    ``per_entry`` is a tuple over pattern entries (``AttnKV`` for
-    attention entries); ``lengths`` is (B,) int32 on the device -- the
-    number of tokens already cached per row.
+    ``per_entry`` is a tuple over pattern entries: ``AttnKV`` (G, Bg, ...)
+    for attention entries over the device rows only, ``MambaState``
+    (G, Bg + Bc, ...) for Mamba entries over device and host rows;
+    ``lengths`` is (Bg,) int32 on the device -- the number of tokens
+    already cached per device row.
     """
 
     per_entry: Tuple[Any, ...]

@@ -1,7 +1,7 @@
 """Public model API: init / weight import / prefill / decode.
 
-Dense causal attention-only stacks with token inputs (the port's first
-slice); every entry point takes an explicit ``device``.
+Causal stacks of attention and Mamba blocks with dense FFNs and token
+inputs; every entry point takes an explicit ``device``.
 """
 from __future__ import annotations
 
@@ -81,10 +81,13 @@ def params_from_numpy(cfg: ModelConfig, tree: Any,
 
 
 def init_decode_state(cfg: ModelConfig, *, device_batch: int,
-                      cache_len: int, device: torch.device | str,
+                      host_batch: int = 0, cache_len: int,
+                      device: torch.device | str,
                       kv_dtype: torch.dtype = torch.bfloat16) -> StackState:
+    """Zero decode state; recurrent entries also hold ``host_batch`` host
+    rows (unified rows ``device_batch + i``)."""
     return transformer.state_init(cfg, device_batch=device_batch,
-                                  cache_len=cache_len,
+                                  host_batch=host_batch, cache_len=cache_len,
                                   device=torch.device(device),
                                   kv_dtype=kv_dtype)
 
@@ -120,7 +123,8 @@ def prefill_bucketed(params: ModelParams, cfg: ModelConfig,
     tokens: (B, T) each row right-padded to the bucket length T;
     prompt_lens: (B,) real lengths on the same device.  Returns logits of
     each prompt's last real token and a fresh filled decode state.
-    Exact: causal masking hides padded positions from every real one.
+    Exact: causal masking hides padded positions from every real one, and
+    Mamba blocks freeze their state at ``prompt_lens[b]``.
     """
     b, t = tokens.shape
     state = init_decode_state(cfg, device_batch=b, cache_len=cache_len,
@@ -128,8 +132,9 @@ def prefill_bucketed(params: ModelParams, cfg: ModelConfig,
     x = embed(params.embedding, tokens)
     positions = state.lengths[:, None] + torch.arange(
         t, dtype=torch.int32, device=tokens.device)[None, :]
-    x, new_state = transformer.stack_forward(params.blocks, cfg, x,
-                                             positions, state)
+    x, new_state = transformer.stack_forward(
+        params.blocks, cfg, x, positions, state,
+        valid_lens=prompt_lens.to(torch.int32))
     rows = torch.arange(b, device=tokens.device)
     x_last = x[rows, prompt_lens.long() - 1]
     return _logits(params, cfg, x_last), new_state

@@ -34,6 +34,7 @@ from repro_torch.models import (ModelParams, decode_step, init_decode_state,
                                 prefill_bucketed)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_cache import PagedKVPool, StackState
+from repro_torch.models.transformer import HostIO
 from repro_torch.serving.lifecycle import (EngineConfig, EngineStats,
                                            RequestLifecycle, reject)
 from repro_torch.serving.prefill_exec import prefill_batched
@@ -67,9 +68,11 @@ class Engine:
                              f"configured for {self.device}")
         if not cfg.has_kv_cache:
             self.e.enable_offload = False   # APEX inapplicable
-        self.state = init_decode_state(cfg, device_batch=self.e.device_slots,
-                                       cache_len=self.e.cache_len,
-                                       device=self.device)
+        # recurrent (Mamba) state also spans the host rows
+        self.state = init_decode_state(
+            cfg, device_batch=self.e.device_slots,
+            host_batch=self.e.host_slots if self.e.enable_offload else 0,
+            cache_len=self.e.cache_len, device=self.device)
         self.stats = EngineStats()
         self.scheduler = scheduler
         self._calibrator: Optional[OnlineCalibrator] = None
@@ -88,6 +91,7 @@ class Engine:
         self.lc = RequestLifecycle(self.e, stats=self.stats,
                                    admission=self.admission)
         self._prefill_shapes: set = set()
+        self._idle_io: Optional[HostIO] = None
         self._overlap: Optional[OverlapController] = None
         self.executor: Optional[HostExecutor] = None
         if self.e.enable_offload:
@@ -152,12 +156,12 @@ class Engine:
 
     def splice_device_row(self, sub: StackState, row: int, slot: int,
                           plen: int) -> None:
-        """Copy one prefilled sub-state row into a slot row of the shared
-        state in place (the reference's dynamic_update on donated
-        buffers)."""
+        """Copy one prefilled sub-state row of every entry (attention KV
+        and recurrent state) into a slot row of the shared state in place
+        (the reference's dynamic_update on donated buffers)."""
         for entry, small in zip(self.state.per_entry, sub.per_entry):
-            entry.k[:, slot].copy_(small.k[:, row])
-            entry.v[:, slot].copy_(small.v[:, row])
+            for big, src in zip(entry, small):
+                big[:, slot].copy_(src[:, row])
         self.state.lengths[slot] = plen
 
     def _admit(self) -> List[Request]:
@@ -234,7 +238,7 @@ class Engine:
         elif active_rows:
             logits, self.state, _, _ = decode_step(
                 self.params, self.cfg, to_device(tokens, self.device),
-                self.state)
+                self.state, self._idle_host_io())
             self._commit_device(logits, active_rows)
         self.stats.iterations += 1
         self.lc.note_iteration()
@@ -251,6 +255,30 @@ class Engine:
         self.lc.retire(free_host=(self.executor.free
                                   if self.executor is not None
                                   else lambda rid: None))
+
+    def _idle_host_io(self) -> Optional[HostIO]:
+        """The step's ``HostIO`` when no cohort is live: None, except for a
+        hybrid with offload, whose recurrent state spans the host rows --
+        it decodes through the unified step with every host row idle (no
+        emit, no consume, an empty commit window).  Built once."""
+        if self.executor is None or not self.cfg.has_recurrent:
+            return None
+        if self._idle_io is None:
+            bc = self.e.host_slots
+            emb = self.params.embedding["embed"]
+            self._idle_io = HostIO(
+                x_carry=torch.zeros((bc, self.cfg.d_model), dtype=emb.dtype,
+                                    device=self.device),
+                positions=torch.zeros((bc,), dtype=torch.int32,
+                                      device=self.device),
+                attn_in=torch.zeros((bc, self.cfg.num_heads,
+                                     self.cfg.resolved_head_dim),
+                                    dtype=torch.float32, device=self.device),
+                consume_layer=-1, emit_layer=-1, window_start=0,
+                window_end=0,
+                row_valid=torch.zeros((bc,), dtype=torch.bool,
+                                      device=self.device))
+        return self._idle_io
 
     def _commit_device(self, logits: torch.Tensor,
                        active_rows: List[int]) -> np.ndarray:

@@ -3,7 +3,8 @@
 Prompt lengths bucket to powers of two and same-bucket admissions
 prefill in ONE device call; device placements are spliced into their
 slot rows of the shared decode state (in place), host placements have
-their attention KV migrated to the paged host pool.
+their attention KV migrated to the paged host pool and, on hybrid
+stacks, their recurrent state spliced into the unified host row.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.core.overlap_engine import stack_row_kv_to_pool_layers
 from repro_torch.serving.lifecycle import pow2_ceil, transition
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.sampler import sample
+from repro_torch.serving.tiermove import splice_recurrent_rows
 
 
 def prefill_batched(eng, placements: List[Tuple[Request, str, int]]) -> None:
@@ -42,6 +44,11 @@ def prefill_batched(eng, placements: List[Tuple[Request, str, int]]) -> None:
                 eng.splice_device_row(sub, j, slot, req.prompt_len)
                 transition(req, Phase.DECODE_DEVICE)
             else:
+                if eng.cfg.has_recurrent:
+                    # recurrent state stays on the device in the unified
+                    # host row; only attention KV goes to the pool
+                    splice_recurrent_rows(eng.cfg, eng.state, sub.per_entry,
+                                          j, eng.e.device_slots + slot)
                 eng.executor.migrate_prompt(
                     req.request_id,
                     stack_row_kv_to_pool_layers(eng.cfg, sub, j,

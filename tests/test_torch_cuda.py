@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")  # the port needs PyTorch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
 from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 
 pytestmark = pytest.mark.cuda
@@ -60,3 +61,30 @@ def test_prefill_kernel_matches_plain_and_is_split_invariant(gen, q_dtype,
     off = torch.full((b,), 70, dtype=torch.int32, device="cuda")
     tail = prefill_attention_cuda(q[:, 70:].contiguous(), k, v, None, off)
     assert torch.equal(tail, whole[:, 70:])
+
+
+@pytest.mark.parametrize("t", [1, 33])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_scan_kernel_matches_plain(gen, t, dtype, tol):
+    """Ragged I (not a multiple of the 128-channel block), lens with a 0
+    and a short row; a row with lens 0 keeps h0 bit for bit."""
+    b, i, n = 4, 200, 16
+    dt = torch.nn.functional.softplus(_randn(gen, (b, t, i), torch.float32))
+    dt, x, bb, cc = (dt.to(dtype), _randn(gen, (b, t, i), dtype),
+                     _randn(gen, (b, t, n), dtype),
+                     _randn(gen, (b, t, n), dtype))
+    a_neg = -torch.exp(_randn(gen, (i, n), torch.float32))
+    d_skip = _randn(gen, (i,), torch.float32)
+    h0 = 0.5 * _randn(gen, (b, i, n), torch.float32)
+    lens = torch.tensor([t, 0, 1, max(t // 2, 1)], dtype=torch.int32,
+                        device="cuda")
+    for ln in (None, lens):
+        y, h = mamba_selective_scan_cuda(dt, x, bb, cc, a_neg, d_skip, h0,
+                                         ln)
+        y_ref, h_ref = ref.mamba_selective_scan_ref(dt, x, bb, cc, a_neg,
+                                                    d_skip, h0, ln)
+        assert y.dtype == h.dtype == torch.float32
+        torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
+        torch.testing.assert_close(h, h_ref, atol=tol, rtol=tol)
+    assert torch.equal(h[1], h0[1])

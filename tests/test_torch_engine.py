@@ -198,21 +198,40 @@ def test_paged_pool_chains_and_reuse():
     assert pool.num_free == 16 and not pool.lengths
 
 
+def _dense_jamba(get, ffn_kind):
+    return dataclasses.replace(
+        get("jamba-1.5-large-398b").reduced(d_model=64, vocab=64),
+        ffn_kind=ffn_kind, moe=None)
+
+
 def test_algorithm1_decisions_match_reference():
     assert "h100" in PLATFORMS and "v5e" not in PLATFORMS
+    from repro.models.config import FFNKind as RefFFNKind
+    from repro_torch.models.config import FFNKind
+    pairs = [(get_config("llama3.1-8b"), ref_get_config("llama3.1-8b")),
+             # the reduced hybrid: Mamba state priced per row
+             (_dense_jamba(get_config, FFNKind.DENSE),
+              _dense_jamba(ref_get_config, RefFFNKind.DENSE))]
+    for cfg, rcfg in pairs:
+        ours_model = analytic_model("a10", cfg)
+        theirs_model = ref_analytic_model("a10", rcfg)
+        assert ours_model.costs.state_bytes_per_row == \
+            theirs_model.costs.state_bytes_per_row
+        assert (ours_model.costs.state_bytes_per_row > 0) == \
+            cfg.has_recurrent
+        ours = ApexScheduler(ours_model)
+        theirs = RefScheduler(theirs_model)
+        for gpu, cpu, pre, ctx in [(4, 0, 0, 512.0), (4, 4, 0, 512.0),
+                                   (1, 8, 0, 4096.0), (2, 6, 128, 1024.0),
+                                   (8, 2, 0, 64.0)]:
+            a = ours.schedule(["p"] * (pre > 0), ["g"] * gpu, ["c"] * cpu,
+                              mean_context=ctx, prefill_tokens=pre)
+            b = theirs.schedule(["p"] * (pre > 0), ["g"] * gpu, ["c"] * cpu,
+                                mean_context=ctx, prefill_tokens=pre)
+            assert a.strategy.value == b.strategy.value
+            assert a.predicted_time == pytest.approx(b.predicted_time,
+                                                     rel=1e-12)
     cfg = get_config("llama3.1-8b")
-    ours = ApexScheduler(analytic_model("a10", cfg))
-    theirs = RefScheduler(ref_analytic_model("a10",
-                                             ref_get_config("llama3.1-8b")))
-    for gpu, cpu, pre, ctx in [(4, 0, 0, 512.0), (4, 4, 0, 512.0),
-                               (1, 8, 0, 4096.0), (2, 6, 128, 1024.0),
-                               (8, 2, 0, 64.0)]:
-        a = ours.schedule(["p"] * (pre > 0), ["g"] * gpu, ["c"] * cpu,
-                          mean_context=ctx, prefill_tokens=pre)
-        b = theirs.schedule(["p"] * (pre > 0), ["g"] * gpu, ["c"] * cpu,
-                            mean_context=ctx, prefill_tokens=pre)
-        assert a.strategy.value == b.strategy.value
-        assert a.predicted_time == pytest.approx(b.predicted_time, rel=1e-12)
     t = analytic_model("h100", cfg).timings(4, 512.0)
     assert isinstance(t, Timings) and t.t_glinear > 0 and t.n_g > t.n_c
     assert RefTimings.__dataclass_fields__.keys() == \

@@ -64,6 +64,7 @@ def _np(x):
 
 
 def test_configs_match_reference():
+    assert "jamba-1.5-large-398b" in list_archs()
     for arch in list_archs():
         a = dataclasses.asdict(get_config(arch))
         b = dataclasses.asdict(ref_get_config(arch))
