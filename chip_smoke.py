@@ -8,9 +8,12 @@ Phases (any failure exits non-zero):
   2. kernels: builds every CUDA kernel from src/repro_torch/csrc with nvcc
      (sm_90a), holds each against its plain PyTorch version over the
      reference sweeps and at the main-path shapes, checks that prefill
-     output is bitwise independent of how a prompt is split, and times
-     kernel, plain version and one library call (where one exists)
-     against the card's bound;
+     output is bitwise independent of how a prompt is split and that
+     decode is one launch per call with no allocation but its output,
+     and times kernel, plain version and one library call (where one
+     exists) against the card's bound -- at the main-path shapes, and
+     for the attention kernels also at a long decode (B 8, S 8192) and a
+     long causal prefill (T 4096);
   3. exactness: llama3.1-8b and the dense-FFN Jamba hybrid, each reduced
      to d_model 256 in fp32 -- greedy tokens from raw prefill+decode,
      engine device rows and host-offloaded rows must be identical;
@@ -82,6 +85,11 @@ MAIN = dict(heads=32, kv_heads=8, head_dim=128, layers=32, cache_len=512,
 # decode of 4 device + 4 host rows
 SCAN_MAIN = dict(inner=16384, state=16, mamba_layers=14, rows=8,
                  prompt_len=128)
+# long shapes where bytes (decode) and flops (prefill) dominate; timed and
+# printed beside the records, not records themselves
+LONG_DECODE = dict(rows=8, cache_len=8192, min_len=7936)
+LONG_PREFILL = dict(rows=1, prompt_len=4096)
+CARD = ""           # nvidia-smi's "name, power.limit", set by phase 1
 
 
 def log(msg: str) -> None:
@@ -166,6 +174,8 @@ def phase_env() -> dict:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    global CARD
+    CARD = card
     return {"name": name, "card": card}
 
 
@@ -408,7 +418,8 @@ def bench_scan(gen) -> dict:
             f"ms; bound {bound:.5f} ms ({by}; bytes {nbytes} B -> "
             f"{t_bytes:.5f} ms, exp {exps} -> {t_exp:.5f} ms, fp32 "
             f"{flops} flop -> {t_flop:.5f} ms), kernel at "
-            f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e}")
+            f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e} "
+            f"[{CARD}]")
         out[shape] = {"ms": ms, "plain_ms": times["plain_ms"],
                       "bound_ms": bound, "bound_by": by, "max_abs_err": err,
                       "bytes": nbytes, "exp": exps}
@@ -508,6 +519,115 @@ def bench_main_shapes(gen) -> dict:
     return out
 
 
+def check_decode_one_launch(gen) -> None:
+    """decode_attention_cuda is one kernel launch per call and, once its
+    workspace exists, allocates nothing but its output."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    h, kv, d = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"]
+    b, s = MAIN["device_slots"], MAIN["cache_len"]
+    q, k, v, _ = _decode_case(gen, b, h, kv, d, s, torch.bfloat16)
+    lengths = torch.tensor([1, 140, 300, s], dtype=torch.int32, device="cuda")
+    decode_attention_cuda(q, k, v, lengths)
+    torch.cuda.synchronize()
+    calls = 10
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        outs = [decode_attention_cuda(q, k, v, lengths) for _ in range(calls)]
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated",
+                                           0) - allocs
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0)) > 0)
+    log(f"  decode_attention_cuda: {kernels} kernel launches and {allocs} "
+        f"allocations over {calls} calls (lengths {lengths.tolist()})")
+    if kernels != calls:
+        fail(f"decode_attention_cuda launched {kernels} kernels in {calls} "
+             "calls; want one per call")
+    if allocs != calls:
+        fail(f"decode_attention_cuda made {allocs} allocations in {calls} "
+             "calls; want only its outputs")
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        fail("decode_attention_cuda: repeated calls on one workspace differ")
+
+
+def bench_long_shapes(gen) -> None:
+    """Decode over a long cache (bytes) and a long causal prefill (tensor
+    cores), each beside SDPA on the same inputs; printed, not recorded.
+    Each call runs longer on the card than the host takes to enqueue it,
+    so CUDA events around back-to-back calls give the device's rate;
+    the profiler's sum of kernel times is printed beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    dt, el = torch.bfloat16, 2
+    h, kv, d = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"]
+
+    b, s = LONG_DECODE["rows"], LONG_DECODE["cache_len"]
+    q, k, v, _ = _decode_case(gen, b, h, kv, d, s, dt)
+    lengths = torch.randint(LONG_DECODE["min_len"], s + 1, (b,),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    err, ok = close(decode_attention_cuda(q, k, v, lengths),
+                    ref.decode_attention_ref(q, k, v, lengths),
+                    TOL["decode", "bfloat16"])
+    if not ok:
+        fail(f"decode at the long shape: err {err}")
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    times = {}
+    for key, fn in (("ms", lambda: decode_attention_cuda(q, k, v, lengths)),
+                    ("sdpa", lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kt, vt, attn_mask=mask,
+                        enable_gqa=True))):
+        times[key] = time_ms(fn)
+        times[key + "_profiler"] = device_ms(fn) or float("nan")
+    nbytes = 2 * int(lengths.sum()) * kv * d * el + 2 * b * h * d * el + 4 * b
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"  decode_attention @ long B{b} H{h} KV{kv} D{d} S{s} lengths "
+        f"{lengths.tolist()} bf16: time per call, back to back: kernel "
+        f"{times['ms']:.5f} ms, sdpa {times['sdpa']:.5f} ms (profiler: "
+        f"{times['ms_profiler']:.5f} / {times['sdpa_profiler']:.5f} ms); "
+        f"bound {bound:.5f} ms (bytes: {nbytes} B), kernel at "
+        f"{100 * bound / times['ms']:.2f}% of bound; max_abs_err {err:.3e} "
+        f"[{CARD}]")
+    del q, k, v, kt, vt
+
+    b, t = LONG_PREFILL["rows"], LONG_PREFILL["prompt_len"]
+    q = _randn(gen, (b, t, h, d), dt, "cuda")
+    k = _randn(gen, (b, t, kv, d), dt, "cuda")
+    v = _randn(gen, (b, t, kv, d), dt, "cuda")
+    out = prefill_attention_cuda(q, k, v)
+    tail = 256                  # the plain version on the last queries
+    off = torch.full((b,), t - tail, dtype=torch.int32, device="cuda")
+    err, ok = close(out[:, -tail:],
+                    ref.prefill_attention_ref(q[:, -tail:], k, v, None, off),
+                    TOL["prefill", "bfloat16"])
+    if not ok:
+        fail(f"prefill at the long shape: err {err}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    times = {}
+    for key, fn in (("ms", lambda: prefill_attention_cuda(q, k, v)),
+                    ("sdpa", lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True))):
+        times[key] = time_ms(fn, reps=10)
+        times[key + "_profiler"] = device_ms(fn, reps=10) or float("nan")
+    flops = 4 * b * t * (t + 1) // 2 * h * d
+    bound = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    log(f"  prefill_attention @ long B{b} T{t} S{t} H{h} KV{kv} D{d} bf16: "
+        f"time per call, back to back: kernel {times['ms']:.5f} ms, sdpa "
+        f"{times['sdpa']:.5f} ms (profiler: {times['ms_profiler']:.5f} / "
+        f"{times['sdpa_profiler']:.5f} ms); bound {bound:.5f} ms "
+        f"(operations: {flops} flop), kernel at "
+        f"{100 * bound / times['ms']:.2f}% of bound, sdpa at "
+        f"{100 * bound / times['sdpa']:.2f}%; max_abs_err {err:.3e} (last "
+        f"{tail} queries) [{CARD}]")
+
+
 def _times(kernel, plain, library) -> dict:
     """Device time per call of the kernel, its plain version and the
     library call (profiler; event-timed calls where it reports nothing),
@@ -538,7 +658,7 @@ def _record(name, source, replaces, err, times, nbytes, flops, dt,
         f"{times['plain_ms_per_call']:.5f} / "
         f"{times['library_ms_per_call']:.5f} ms; bound {bound:.5f} ms "
         f"({by}: {nbytes} B, {flops} flop), kernel at "
-        f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e}")
+        f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e} [{CARD}]")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": times["plain_ms"], "bound_ms": bound,
@@ -561,7 +681,9 @@ def phase_kernels() -> dict:
     check_chunk_split_bitwise(gen)
     check_scan(gen)
     torch.cuda.synchronize()
+    check_decode_one_launch(gen)
     records = bench_main_shapes(gen)
+    bench_long_shapes(gen)
     records["mamba_selective_scan"] = bench_scan(gen)
     return records
 

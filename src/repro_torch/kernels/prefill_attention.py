@@ -1,23 +1,26 @@
 """Causal prefill attention on the card: wrapper of ``csrc/prefill_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/prefill_attention.py``
-(``prefill_attention`` / ``_prefill_kernel``).  FA2-style: one CTA per
-(64-query block, head, batch row) walks 64-key tiles in absolute order
-up to the block's causal limit.  bf16 runs both products on tensor
-cores (WMMA, fp32 accumulate); fp32 uses plain FMA.  Tile boundaries do
-not depend on ``q_offset`` or T, so a token's output is bitwise the
-same however its prompt is split into chunks.
+(``prefill_attention`` / ``_prefill_kernel``).  FlashAttention-2 style:
+a CTA takes a 16-query block of up to four query heads of one kv head
+(a warp per head) and walks 32-key tiles in absolute order up to the
+block's causal limit, K/V streaming through a cp.async ring.  bf16 runs
+both products on tensor cores (mma.sync, fp32 accumulate, scores and
+probabilities in registers); an fp32 query uses plain FMA.  Tile
+boundaries do not depend on ``q_offset`` or T, so a token's output is
+bitwise the same however its prompt is split into chunks.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64, 128)
+GROUPS = (1, 2, 4, 8)                # query heads per kv head
 # (q, kv) dtypes: one type throughout, or an fp32 model over the bf16 cache
 DTYPE_PAIRS = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
@@ -25,22 +28,30 @@ DTYPE_PAIRS = ((torch.float32, torch.float32),
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_fn = None
+_zeros: Dict[torch.device, torch.Tensor] = {}  # read-only (B,) default rows
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("prefill_attention")
-    fn = lib.apex_prefill_attention
-    if fn.argtypes is None:
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = build.load("prefill_attention").apex_prefill_attention
         fn.argtypes = [_P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
-    return lib
+        _fn = fn
+    return _fn
 
 
 def _row_vector(x: Optional[torch.Tensor], b: int, device: torch.device,
                 name: str) -> torch.Tensor:
     if x is None:
-        return torch.zeros((b,), dtype=torch.int32, device=device)
+        zeros = _zeros.get(device)
+        if zeros is None or zeros.numel() < b:
+            zeros = _zeros[device] = torch.zeros((max(b, 64),),
+                                                 dtype=torch.int32,
+                                                 device=device)
+        return zeros[:b]
     if x.dtype != torch.int32 or x.shape != (b,) or x.device != device \
             or not x.is_contiguous():
         raise ValueError(f"{name} must be a contiguous (B,) int32 tensor "
@@ -59,8 +70,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head_dim")
-    if h % k.shape[2]:
-        raise ValueError(f"heads {h} not a multiple of kv heads {k.shape[2]}")
+    if h % k.shape[2] or h // k.shape[2] not in GROUPS:
+        raise ValueError(f"H/KV = {h}/{k.shape[2]} not in {GROUPS}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if (q.dtype, k.dtype) not in DTYPE_PAIRS or v.dtype != k.dtype:
@@ -86,7 +97,7 @@ def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_offset = _row_vector(q_offset, b, q.device, "q_offset")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().apex_prefill_attention(
+    rc = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), prefix_len.data_ptr(),
         q_offset.data_ptr(), out.data_ptr(), b, t, s, h, kv, d,
         int(q.dtype == torch.bfloat16),

@@ -88,3 +88,75 @@ def test_scan_kernel_matches_plain(gen, t, dtype, tol):
         torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
         torch.testing.assert_close(h, h_ref, atol=tol, rtol=tol)
     assert torch.equal(h[1], h0[1])
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_prefill_bf16_heads_per_cta(gen, g, d):
+    """The tensor-core path over head groups (one CTA takes up to four
+    query heads of a kv head): T not a multiple of the query block or
+    the key tile, a non-zero prefix, and full attention over a ragged
+    S."""
+    b, t, kv = 2, 100, 2
+    h = g * kv
+    q = _randn(gen, (b, t, h, d), torch.bfloat16)
+    k = _randn(gen, (b, t, kv, d), torch.bfloat16)
+    v = _randn(gen, (b, t, kv, d), torch.bfloat16)
+    prefix = torch.tensor([70, 5], dtype=torch.int32, device="cuda")
+    for causal in (True, False):
+        out = prefill_attention_cuda(q, k, v, prefix, causal=causal)
+        torch.testing.assert_close(
+            out.float(), ref.prefill_attention_ref(q, k, v, prefix,
+                                                   causal=causal).float(),
+            atol=3e-2, rtol=3e-2)
+
+
+def test_prefill_bf16_chunk_split_bitwise_g8(gen):
+    """Jamba's G 8 (two CTAs per kv head) at D 128: a token's output is
+    bitwise the same however its prompt is split."""
+    b, t, s, h, kv, d = 2, 200, 256, 16, 2, 128
+    q = _randn(gen, (b, t, h, d), torch.bfloat16)
+    k = _randn(gen, (b, s, kv, d), torch.bfloat16)
+    v = _randn(gen, (b, s, kv, d), torch.bfloat16)
+    whole = prefill_attention_cuda(q, k, v)
+    for a, e in ((0, 1), (1, 77), (77, 130), (130, 200)):
+        off = torch.full((b,), a, dtype=torch.int32, device="cuda")
+        part = prefill_attention_cuda(q[:, a:e].contiguous(), k, v, None, off)
+        assert torch.equal(part, whole[:, a:e]), (a, e)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_decode_long_context_splits(gen, b):
+    """S 8192: one row (many splits per kv head) and three rows of
+    lengths 1, 4097 and 8192 (one split, an uneven and a full split)."""
+    h, kv, d, s = 32, 8, 128, 8192
+    q = _randn(gen, (b, h, d), torch.bfloat16)
+    k = _randn(gen, (b, s, kv, d), torch.bfloat16)
+    v = _randn(gen, (b, s, kv, d), torch.bfloat16)
+    lengths = torch.tensor([1, 4097, 8192][-b:], dtype=torch.int32,
+                           device="cuda")
+    out = decode_attention_cuda(q, k, v, lengths)
+    torch.testing.assert_close(
+        out.float(), ref.decode_attention_ref(q, k, v, lengths).float(),
+        atol=2e-2, rtol=2e-2)
+
+
+def test_decode_workspace_reused_across_calls(gen):
+    """The split counters are reset by the kernel: calls in a row on the
+    same workspace, and a smaller call after a larger one, agree."""
+    b, h, kv, d, s = 4, 32, 8, 128, 2048
+    q = _randn(gen, (b, h, d), torch.float32)
+    k = _randn(gen, (b, s, kv, d), torch.bfloat16)
+    v = _randn(gen, (b, s, kv, d), torch.bfloat16)
+    lengths = torch.tensor([2048, 700, 33, 1500], dtype=torch.int32,
+                           device="cuda")
+    first = decode_attention_cuda(q, k, v, lengths)
+    again = decode_attention_cuda(q, k, v, lengths)
+    small = decode_attention_cuda(q[:1].contiguous(), k[:1].contiguous(),
+                                  v[:1].contiguous(), lengths[:1].contiguous())
+    third = decode_attention_cuda(q, k, v, lengths)
+    torch.testing.assert_close(first, ref.decode_attention_ref(q, k, v,
+                                                               lengths),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(again, first) and torch.equal(third, first)
+    torch.testing.assert_close(small, first[:1], atol=1e-6, rtol=1e-6)

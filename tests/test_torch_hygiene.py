@@ -50,3 +50,9 @@ def test_port_calls_no_library_attention():
         text = path.read_text()
         assert "scaled_dot_product_attention" not in text, path
         assert "torch.compile" not in text, path
+    sources = sorted((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))
+    assert sources
+    for path in sources:                # the kernels are written by hand
+        text = path.read_text().lower()
+        for name in ("cublas", "cudnn", "cutlass/gemm/device"):
+            assert name not in text, f"{path.name} uses {name}"

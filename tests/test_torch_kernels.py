@@ -20,7 +20,9 @@ from repro.kernels.host_paged_attention import \
     host_paged_attention_numpy as ref_host_paged
 from repro.kernels.prefill_attention import prefill_attention as pallas_prefill
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import (CTAS_PER_SM, TILE,
+                                                  decode_attention_cuda,
+                                                  plan_splits, split_bounds)
 from repro_torch.kernels.host_paged_attention import \
     host_paged_attention_numpy
 from repro_torch.kernels.prefill_attention import prefill_attention_cuda
@@ -158,6 +160,38 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError):
         prefill_attention_cuda(q[:, None], k, k)
     assert decode_attention_cuda.launches == 0
+
+
+@pytest.mark.parametrize("b,kv,s,one_split", [
+    (4, 8, 512, False),         # the serving path's decode (llama3.1-8b)
+    (8, 8, 8192, False),        # long context
+    (1, 8, 8192, False),        # one row: many splits per kv head
+    (4, 8, 32, True),           # one tile of cache: one split
+    (128, 8, 4096, True),       # B*KV alone fills a wave: one split
+])
+def test_decode_split_plan(b, kv, s, one_split):
+    """The host's split count fills between half of one and one wave of
+    resident CTAs on an H100's 132 SMs, unless S has no more tiles to
+    split; one split where S or the batch leaves nothing to split; every
+    split the kernel derives from a row's length covers [0, length)
+    without gaps or overlap."""
+    sms = 132
+    splits = plan_splits(b, kv, s, sms)
+    tiles = -(-s // TILE)
+    assert 1 <= splits <= tiles
+    waves = b * kv * splits / (CTAS_PER_SM * sms)
+    if one_split:
+        assert splits == 1
+    else:
+        assert waves <= 1 and (waves > 0.5 or splits == tiles)
+    for length in sorted({1, 2, TILE - 1, TILE, TILE + 1, s // 3, s - 1,
+                          s} & set(range(1, s + 1))):
+        bounds = split_bounds(length, splits)
+        assert 1 <= len(bounds) <= splits
+        assert bounds[0][0] == 0 and bounds[-1][1] == length
+        for (a0, a1), (b0, _) in zip(bounds, bounds[1:]):
+            assert a1 == b0 and (a1 - a0) % TILE == 0
+        assert all(e > a for a, e in bounds)
 
 
 @pytest.mark.parametrize("b,pages,page_size", [(2, 8, 16), (3, 12, 32)])
