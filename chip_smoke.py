@@ -8,12 +8,14 @@ Phases (any failure exits non-zero):
   2. kernels: builds every CUDA kernel from src/repro_torch/csrc with nvcc
      (sm_90a), holds each against its plain PyTorch version over the
      reference sweeps and at the main-path shapes, checks that prefill
-     output is bitwise independent of how a prompt is split and that
-     decode is one launch per call with no allocation but its output,
-     and times kernel, plain version and one library call (where one
-     exists) against the card's bound -- at the main-path shapes, and
-     for the attention kernels also at a long decode (B 8, S 8192) and a
-     long causal prefill (T 4096);
+     output is bitwise independent of how a prompt is split and the
+     scan's of how a call is split in T (state carried), in place or
+     not, that decode attention and the scan are one launch per call
+     with no allocation but their outputs, and times kernel, plain
+     version and one library call (where one exists) against the card's
+     bound -- at the main-path shapes, and also at a long decode (B 8,
+     S 8192), a long causal prefill (T 4096) and a long scan (B 1,
+     T 4096);
   3. exactness: llama3.1-8b and the dense-FFN Jamba hybrid, each reduced
      to d_model 256 in fp32 -- greedy tokens from raw prefill+decode,
      engine device rows and host-offloaded rows must be identical;
@@ -72,6 +74,7 @@ SCAN_SWEEP = [              # (B, T, I, N) -- tests/test_kernels.py
     (2, 33, 128, 16),
     (2, 64, 256, 16),
 ]
+SCAN_CUTS = (1, 31, 32, 33, 64)   # where a T 70 scan is split in two calls
 TOL = {("decode", "float32"): 1e-5, ("decode", "bfloat16"): 2e-2,
        ("prefill", "float32"): 1e-5, ("prefill", "bfloat16"): 3e-2,
        ("scan", "float32"): 1e-5, ("scan", "bfloat16"): 3e-2}
@@ -89,7 +92,12 @@ SCAN_MAIN = dict(inner=16384, state=16, mamba_layers=14, rows=8,
 # printed beside the records, not records themselves
 LONG_DECODE = dict(rows=8, cache_len=8192, min_len=7936)
 LONG_PREFILL = dict(rows=1, prompt_len=4096)
+LONG_SCAN = dict(rows=1, prompt_len=4096)      # one long prompt into Jamba
 CARD = ""           # nvidia-smi's "name, power.limit", set by phase 1
+# a part of each hand-written kernel's name, as the profiler reports it
+PORT_KERNELS = {"decode_attention": "decode_kernel",
+                "prefill_attention": "prefill_", "mamba_selective_scan":
+                "mamba_scan_kernel"}
 
 
 def log(msg: str) -> None:
@@ -307,8 +315,11 @@ def _scan_case(gen, b, t, i, n, dtype, h0_scale=0.5):
 
 def check_scan(gen) -> None:
     """The selective-scan kernel against its plain version: the reference
-    sweep, right-padded rows (with a row of length 0, over a ragged
-    inner dim), and h0 carried across two calls."""
+    sweep (N 8 and N 16), right-padded rows (with a row of length 0, over
+    a ragged inner dim, at N 8 and N 16), and bitwise: a padded row's
+    state equals its unpadded run's, a call split in T with h0 carried
+    equals one call (splits across the 32-step tiles), and the state
+    written in place over h0 equals a fresh h_final."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
@@ -324,24 +335,28 @@ def check_scan(gen) -> None:
                 f"{err:.3e}")
             if not (close(ys, yr, tol)[1] and close(hs, hr, tol)[1]):
                 fail(f"mamba_scan {dn} {(b, t, i, n)} err {err}")
-        b, t, i, n = 4, 33, 200, 16
-        args = _scan_case(gen, b, t, i, n, dtype)
-        lens = torch.tensor([33, 20, 0, 1], dtype=torch.int32, device="cuda")
-        ys, hs = mamba_selective_scan_cuda(*args, lens)
-        yr, hr = ref.mamba_selective_scan_ref(*args, lens)
-        err = max(close(ys, yr, tol)[0], close(hs, hr, tol)[0])
-        log(f"  scan    {dn:8s} lens {lens.tolist()} B{b} T{t} I{i} N{n}: "
-            f"max_abs_err {err:.3e}")
-        if not (close(ys, yr, tol)[1] and close(hs, hr, tol)[1]):
-            fail(f"mamba_scan {dn} with lens: err {err}")
-        if not torch.equal(hs[2], args[6][2]):
-            fail(f"mamba_scan {dn}: a row of length 0 changed its state")
-        one = [v[3:4, :1].contiguous() for v in args[:4]]
-        _, h_one = mamba_selective_scan_cuda(*one, *args[4:6],
-                                             args[6][3:4].contiguous())
-        if not torch.equal(h_one[0], hs[3]):
-            fail(f"mamba_scan {dn}: a padded row's state differs from its "
-                 "unpadded run")
+        for n in (8, 16):
+            b, t, i = 4, 33, 200
+            args = _scan_case(gen, b, t, i, n, dtype)
+            lens = torch.tensor([33, 20, 0, 1], dtype=torch.int32,
+                                device="cuda")
+            ys, hs = mamba_selective_scan_cuda(*args, lens)
+            yr, hr = ref.mamba_selective_scan_ref(*args, lens)
+            err = max(close(ys, yr, tol)[0], close(hs, hr, tol)[0])
+            log(f"  scan    {dn:8s} lens {lens.tolist()} B{b} T{t} I{i} "
+                f"N{n}: max_abs_err {err:.3e}")
+            if not (close(ys, yr, tol)[1] and close(hs, hr, tol)[1]):
+                fail(f"mamba_scan {dn} N{n} with lens: err {err}")
+            if not torch.equal(hs[2], args[6][2]):
+                fail(f"mamba_scan {dn}: a row of length 0 changed its state")
+            for row in (1, 3):
+                real = int(lens[row])
+                one = [v[row:row + 1, :real].contiguous() for v in args[:4]]
+                _, h_one = mamba_selective_scan_cuda(
+                    *one, *args[4:6], args[6][row:row + 1].contiguous())
+                if not torch.equal(h_one[0], hs[row]):
+                    fail(f"mamba_scan {dn} N{n}: padded row {row}'s state "
+                         "differs from its unpadded run")
         # h0 threading: two halves == one call
         b, t, i, n = 1, 32, 64, 8
         args = _scan_case(gen, b, t, i, n, dtype)
@@ -354,13 +369,103 @@ def check_scan(gen) -> None:
                 and torch.equal(h_end, h_full)):
             fail(f"mamba_scan {dn}: h0 carried across calls differs from "
                  "one call")
-        log(f"  scan    {dn:8s} padded row == unpadded run, h0 carry == one "
-            "call: bitwise")
+        # splits of a T 70 call before, at and after the tile edges
+        b, t, i, n = 2, 70, 256, 16
+        args = _scan_case(gen, b, t, i, n, dtype)
+        y_full, h_full = mamba_selective_scan_cuda(*args)
+        for cut in SCAN_CUTS:
+            y1, h_mid = mamba_selective_scan_cuda(
+                *[v[:, :cut].contiguous() for v in args[:4]], *args[4:])
+            y2, h_end = mamba_selective_scan_cuda(
+                *[v[:, cut:].contiguous() for v in args[:4]], *args[4:6],
+                h_mid)
+            if not (torch.equal(torch.cat([y1, y2], 1), y_full)
+                    and torch.equal(h_end, h_full)):
+                fail(f"mamba_scan {dn}: T {t} split at {cut} with h0 "
+                     "carried differs from one call")
+        # in place: h_out is h0
+        state = args[6].clone()
+        y_in, h_in = mamba_selective_scan_cuda(*args[:6], state,
+                                               h_out=state)
+        if not (h_in is state and torch.equal(y_in, y_full)
+                and torch.equal(state, h_full)):
+            fail(f"mamba_scan {dn}: the state written over h0 differs from "
+                 "a fresh h_final")
+        log(f"  scan    {dn:8s} padded rows == unpadded runs (N 8, N 16), "
+            f"h0 carry == one call (splits at {SCAN_CUTS} of T {t}), in "
+            "place == fresh: bitwise")
+
+
+def check_scan_one_launch(gen) -> None:
+    """mamba_selective_scan_cuda is one kernel launch per call and
+    allocates only y, and h_final when no h_out is given."""
+    import torch
+    from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
+    b, i, n = SCAN_MAIN["rows"], SCAN_MAIN["inner"], SCAN_MAIN["state"]
+    args = _scan_case(gen, b, 1, i, n, torch.float32)
+    lens = torch.tensor([1, 1, 0, 1, 0, 1, 1, 1], dtype=torch.int32,
+                        device="cuda")
+    state = args[6].clone()
+    mamba_selective_scan_cuda(*args, lens)
+    torch.cuda.synchronize()
+    calls = 10
+    for h_out, per_call in ((None, 2), (state, 1)):
+        def call():
+            return mamba_selective_scan_cuda(*args[:6], state, lens, h_out)
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats().get("allocation.all.allocated",
+                                               0) - allocs
+        kinds = graph_launches(call, calls,
+                               PORT_KERNELS["mamba_selective_scan"])
+        how = "in place" if h_out is not None else "fresh h_final"
+        log(f"  mamba_selective_scan_cuda ({how}): graph nodes {kinds} and "
+            f"{allocs} allocations over {calls} calls")
+        if kinds != {"kernel": calls}:
+            fail(f"mamba_selective_scan_cuda ({how}) put {kinds} on the "
+                 f"stream in {calls} calls; want one launch of its kernel "
+                 "per call")
+        if allocs != per_call * calls:
+            fail(f"mamba_selective_scan_cuda ({how}) made {allocs} "
+                 f"allocations in {calls} calls; want {per_call} per call")
+
+
+def scan_bound(b: int, t: int, i: int, n: int, el: int = 4) -> dict:
+    """The least time of a selective scan on the card: every input byte
+    read once and every output byte written once (dt, x, b, c in ``el``
+    bytes; A, D, h0, y, h_final fp32; lens int32), against B*T*I*N exp
+    calls on the SFUs and 5 fp32 flops per exp."""
+    nbytes = (2 * b * t * i * el + 2 * b * t * n * el     # dt, x, b, c
+              + i * n * 4 + i * 4 + b * i * n * 4 + b * 4  # A, D, h0, lens
+              + b * t * i * 4 + b * i * n * 4)            # y, h_final
+    exps = b * t * i * n
+    flops = 5 * exps          # dt*A, *h, +dt*x*b, h*c, sum
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_exp = exps / PEAK_EXP_PER_S * 1e3
+    t_flop = flops / PEAK_FLOPS["float32"] * 1e3
+    bound = max(t_bytes, t_exp, t_flop)
+    return {"bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= max(t_exp, t_flop)
+            else "operations", "bytes": nbytes, "exp": exps,
+            "flops": flops, "t_bytes": t_bytes, "t_exp": t_exp,
+            "t_flop": t_flop}
+
+
+def _bound_text(bd: dict) -> str:
+    return (f"bound {bd['bound_ms']:.5f} ms ({bd['bound_by']}; bytes "
+            f"{bd['bytes']} B -> {bd['t_bytes']:.5f} ms, exp {bd['exp']} -> "
+            f"{bd['t_exp']:.5f} ms, fp32 {bd['flops']} flop -> "
+            f"{bd['t_flop']:.5f} ms)")
 
 
 def bench_scan(gen) -> dict:
-    """Kernel vs plain version at the hybrid serving phase's two shapes;
-    no single PyTorch call computes a selective scan (library: none)."""
+    """Kernel vs plain version at the hybrid serving phase's two shapes
+    (profiler device time per call, CUDA events around back-to-back
+    calls beside it), and the kernel alone at one long prompt (events,
+    profiler beside); no single PyTorch call computes a selective scan
+    (library: none)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
@@ -399,32 +504,43 @@ def bench_scan(gen) -> dict:
             dev = device_ms(fn)
             times[key] = dev if dev is not None else per_call
             times[key + "_per_call"] = per_call
-        el = 4
-        nbytes = (2 * b * t * i * el + 2 * b * t * n * el   # dt, x, b, c
-                  + i * n * 4 + i * 4 + b * i * n * 4 + b * 4   # A, D, h0, lens
-                  + b * t * i * 4 + b * i * n * 4)           # y, h_final
-        exps = b * t * i * n
-        flops = 5 * exps          # dt*A, *h, +dt*x*b, h*c, sum
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_exp = exps / PEAK_EXP_PER_S * 1e3
-        t_flop = flops / PEAK_FLOPS["float32"] * 1e3
-        bound = max(t_bytes, t_exp, t_flop)
-        by = "bytes" if t_bytes >= max(t_exp, t_flop) else "operations"
+        bd = scan_bound(b, t, i, n)
         ms = times["ms"]
         log(f"  mamba_selective_scan @ {shape} B{b} T{t} I{i} N{n} fp32: "
             f"device time per call: kernel {ms:.5f} ms, plain "
-            f"{times['plain_ms']:.5f} ms; with host enqueue "
-            f"{times['ms_per_call']:.5f} / {times['plain_ms_per_call']:.5f} "
-            f"ms; bound {bound:.5f} ms ({by}; bytes {nbytes} B -> "
-            f"{t_bytes:.5f} ms, exp {exps} -> {t_exp:.5f} ms, fp32 "
-            f"{flops} flop -> {t_flop:.5f} ms), kernel at "
-            f"{100 * bound / ms:.2f}% of bound; max_abs_err {err:.3e} "
-            f"[{CARD}]")
+            f"{times['plain_ms']:.5f} ms; CUDA events, back to back (with "
+            f"host enqueue) {times['ms_per_call']:.5f} / "
+            f"{times['plain_ms_per_call']:.5f} ms; {_bound_text(bd)}, kernel "
+            f"at {100 * bd['bound_ms'] / ms:.2f}% of bound; max_abs_err "
+            f"{err:.3e} [{CARD}]")
         out[shape] = {"ms": ms, "plain_ms": times["plain_ms"],
-                      "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-                      "bytes": nbytes, "exp": exps}
+                      "ms_events": times["ms_per_call"],
+                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                      "max_abs_err": err, "bytes": bd["bytes"],
+                      "exp": bd["exp"]}
+    # one long prompt: the card runs each call longer than the host takes
+    # to enqueue it, so events around back-to-back calls give its rate
+    b, t = LONG_SCAN["rows"], LONG_SCAN["prompt_len"]
+    args = _scan_case(gen, b, t, i, n, torch.float32)
+    ys, hs = mamba_selective_scan_cuda(*args)
+    yr, hr = ref.mamba_selective_scan_ref(*args)
+    err = max(close(ys, yr, 1e-5)[0], close(hs, hr, 1e-5)[0])
+    if not (close(ys, yr, 1e-5)[1] and close(hs, hr, 1e-5)[1]):
+        fail(f"mamba_scan at the long shape: err {err}")
+    del ys, hs, yr, hr
+    fn = lambda: mamba_selective_scan_cuda(*args)
+    ms = time_ms(fn, reps=10)
+    prof = device_ms(fn, reps=10) or float("nan")
+    bd = scan_bound(b, t, i, n)
+    log(f"  mamba_selective_scan @ long B{b} T{t} I{i} N{n} fp32: time per "
+        f"call, back to back: kernel {ms:.5f} ms (profiler {prof:.5f} ms); "
+        f"{_bound_text(bd)}, kernel at {100 * bd['bound_ms'] / ms:.2f}% of "
+        f"bound; max_abs_err {err:.3e} [{CARD}]")
+    out["long"] = {"ms": ms, "ms_profiler": prof, "bound_ms": bd["bound_ms"],
+                   "bound_by": bd["bound_by"], "max_abs_err": err}
     # the record: the decode shape (14 launches every iteration), with
-    # the prefill shape (14 per admission bucket) beside it
+    # the prefill shape (14 per admission bucket) and the long prompt
+    # beside it
     dec = out["decode"]
     return {"name": "mamba_selective_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/mamba_scan.cu",
@@ -434,9 +550,12 @@ def bench_scan(gen) -> dict:
             "ms": dec["ms"], "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
             "library_ms": None,
-            "shape": f"decode B{b} T1 I{i} N{n} fp32",
+            "shape": f"decode B{SCAN_MAIN['rows']} T1 I{i} N{n} fp32",
             "prefill_shape": dict(out["prefill"],
-                                  shape=f"B{b} T{plen} I{i} N{n} fp32")}
+                                  shape=f"B{SCAN_MAIN['rows']} T{plen} I{i} "
+                                  f"N{n} fp32"),
+            "long_shape": dict(out["long"], shape=f"B{b} T{t} I{i} N{n} "
+                               "fp32")}
 
 
 def bench_main_shapes(gen) -> dict:
@@ -519,11 +638,42 @@ def bench_main_shapes(gen) -> dict:
     return out
 
 
+def graph_launches(fn, calls: int, kernel: str) -> dict:
+    """What ``calls`` calls of ``fn`` put on the stream, by graph node
+    type, with launches of ``kernel`` apart: the calls are captured in
+    one CUDA graph and its nodes read back from the graph's debug dump,
+    which, unlike a profiler trace, drops no record."""
+    import collections
+    import re
+    import torch
+    from repro_torch.kernels import build
+    fn()                                # one-time set-up outside the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # dumpable after capture
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    path = build.BUILD_DIR / "launch_check.dot"
+    graph.debug_dump(str(path))
+    # a node is defined at the start of a line ("graph_G_node_N"[...]);
+    # an edge's target is followed by a space
+    nodes = re.split(r'^"graph_\d+_node_\d+"\[', path.read_text(),
+                     flags=re.M)[1:]
+    if not nodes:
+        fail(f"no node in the CUDA graph's dump {path}")
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = re.search(r'label="\{(\w+)', node)
+        kinds["kernel" if kernel in node else
+              kind.group(1) if kind else "?"] += 1
+    return dict(kinds)
+
+
 def check_decode_one_launch(gen) -> None:
     """decode_attention_cuda is one kernel launch per call and, once its
     workspace exists, allocates nothing but its output."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     h, kv, d = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"]
     b, s = MAIN["device_slots"], MAIN["cache_len"]
@@ -533,19 +683,17 @@ def check_decode_one_launch(gen) -> None:
     torch.cuda.synchronize()
     calls = 10
     allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        outs = [decode_attention_cuda(q, k, v, lengths) for _ in range(calls)]
-        torch.cuda.synchronize()
+    outs = [decode_attention_cuda(q, k, v, lengths) for _ in range(calls)]
+    torch.cuda.synchronize()
     allocs = torch.cuda.memory_stats().get("allocation.all.allocated",
                                            0) - allocs
-    kernels = sum(ev.count for ev in prof.key_averages()
-                  if getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0)) > 0)
-    log(f"  decode_attention_cuda: {kernels} kernel launches and {allocs} "
+    kinds = graph_launches(lambda: decode_attention_cuda(q, k, v, lengths),
+                           calls, PORT_KERNELS["decode_attention"])
+    log(f"  decode_attention_cuda: graph nodes {kinds} and {allocs} "
         f"allocations over {calls} calls (lengths {lengths.tolist()})")
-    if kernels != calls:
-        fail(f"decode_attention_cuda launched {kernels} kernels in {calls} "
-             "calls; want one per call")
+    if kinds != {"kernel": calls}:
+        fail(f"decode_attention_cuda put {kinds} on the stream in {calls} "
+             "calls; want one launch of its kernel per call")
     if allocs != calls:
         fail(f"decode_attention_cuda made {allocs} allocations in {calls} "
              "calls; want only its outputs")
@@ -682,6 +830,7 @@ def phase_kernels() -> dict:
     check_scan(gen)
     torch.cuda.synchronize()
     check_decode_one_launch(gen)
+    check_scan_one_launch(gen)
     records = bench_main_shapes(gen)
     bench_long_shapes(gen)
     records["mamba_selective_scan"] = bench_scan(gen)
@@ -805,9 +954,12 @@ def _serve_once(cfg, params, scfg, prompts, output_len):
 def _traced_window(cfg, params, scfg, prompts, output_len, iters):
     """A separate traced run: ``iters`` engine iterations in steady decode
     under ``torch.profiler``.  Returns (device-busy share of the wall
-    time, wall ms per iteration, top kernels by device time).  Kernels on
-    the executor's copy stream may overlap others, so the share is an
-    upper bound."""
+    time, wall ms per iteration, device ms per iteration by kernel, and
+    (ms per iteration, calls per iteration, op, input shapes) of every
+    PyTorch op by the device time of the kernels it launched itself, over
+    a few more iterations traced on the host too).  Kernels on the
+    executor's copy stream may overlap others, so the share is an upper
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import InferenceServer, Request
@@ -824,15 +976,29 @@ def _traced_window(cfg, params, scfg, prompts, output_len, iters):
                 server.step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        attributed = 4
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as by_op:
+            for _ in range(attributed):
+                server.step()
+            torch.cuda.synchronize()
+    ops = []
+    for ev in by_op.key_averages(group_by_input_shape=True):
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and ev.key.startswith("aten::"):
+            ops.append((us / attributed / 1e3, ev.count // attributed,
+                        ev.key, ev.input_shapes))
     per_kernel = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
-            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us
-    busy = sum(per_kernel.values()) / 1e6
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return busy / wall, 1e3 * wall / iters, top
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / iters / 1e3
+    busy = sum(per_kernel.values()) * iters / 1e3
+    return busy / wall, 1e3 * wall / iters, per_kernel, sorted(ops,
+                                                                reverse=True)
 
 
 def _kernel_wrappers() -> dict:
@@ -906,13 +1072,24 @@ def _serve_published(cfg, traced_iters: int) -> dict:
         f"pool {scfg.host_pool_pages} pages = {pool_bytes / 2**20:.0f} MiB; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
-    share, ms_iter, top = _traced_window(cfg, params, scfg, prompts, out_len,
-                                         traced_iters)
+    share, ms_iter, per_kernel, ops = _traced_window(
+        cfg, params, scfg, prompts, out_len, traced_iters)
     log(f"  traced window ({traced_iters} iterations, separate run): "
         f"{ms_iter:.2f} ms per iteration, device busy {100 * share:.1f}% of "
         f"wall (idle {100 * (1 - share):.1f}%); top kernels by device time:")
-    for key, us in top:
-        log(f"    {us / traced_iters / 1e3:8.3f} ms/iter  {key[:100]}")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:8.3f} ms/iter  {key[:100]}")
+    port = {name: sum(ms for key, ms in per_kernel.items() if tag in key)
+            for name, tag in PORT_KERNELS.items()}
+    log("  the port's kernels, device ms per iteration: "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in port.items()))
+    log("  PyTorch ops by the device time of their own kernels (4 more "
+        "iterations, traced on the host too); the top ones, then the "
+        "copies:")
+    copies = [o for o in ops if o[2] == "aten::copy_"]
+    for ms, count, key, shapes in ops[:8] + copies[:6]:
+        log(f"    {ms:8.3f} ms/iter  {count:4d} calls/iter  {key} "
+            f"{str(shapes)[:110]}")
     bad = [r.request_id for r in reqs
            if r.failed or len(r.output) != out_len]
     if bad:

@@ -40,11 +40,18 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mamba_selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                          c: torch.Tensor, a_neg: torch.Tensor,
                          d_skip: torch.Tensor, h0: torch.Tensor,
-                         lens: Optional[torch.Tensor] = None):
+                         lens: Optional[torch.Tensor] = None,
+                         h_out: Optional[torch.Tensor] = None):
     """Selective scan: dt, x (B,T,I); b, c (B,T,N); a_neg (I,N); d_skip
-    (I,); h0 (B,I,N); state frozen past ``lens[b]`` -> (y, h_final) fp32."""
+    (I,); h0 (B,I,N); state frozen past ``lens[b]`` -> (y, h_final) fp32.
+    With ``h_out`` (contiguous fp32 (B,I,N), may be h0) the final state
+    is written there and returned."""
     if dt.device.type == "cpu":
-        return _ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip, h0,
+        _scan.check_h_out(h0, h_out)
+        y, h = _ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip, h0,
                                              lens)
+        if h_out is None:
+            return y, h
+        return y, h_out.copy_(h)
     return _scan.mamba_selective_scan_cuda(dt, x, b, c, a_neg, d_skip, h0,
-                                           lens)
+                                           lens, h_out)

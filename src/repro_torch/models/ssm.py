@@ -4,7 +4,8 @@ Port of the Mamba part of ``repro/models/ssm.py``.  The contract:
 
   * ``mamba_init(cfg, d_model, gen, ...)``         -- random parameters
   * ``mamba_init_state(cfg, d_model, batch, ...)`` -- zero decode state
-  * ``mamba_forward(params, cfg, x, state, valid_lens)`` -> (y, new_state)
+  * ``mamba_forward(params, cfg, x, state, valid_lens, h_out)``
+                                                 -> (y, new_state)
 
 ``x`` is (B, T, d_model); decode is the same block at T = 1.  The
 selective scan itself runs in ``kernels.ops.mamba_selective_scan`` (the
@@ -102,10 +103,14 @@ def _gather_conv_window(window: torch.Tensor, valid_lens: torch.Tensor,
 
 def mamba_forward(params: Params, cfg: MambaConfig, x: torch.Tensor,
                   state: MambaState,
-                  valid_lens: Optional[torch.Tensor] = None
+                  valid_lens: Optional[torch.Tensor] = None,
+                  h_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, MambaState]:
     """x: (B, T, d_model) -> (y (B, T, d_model), new_state).  The state
-    passed in is not modified."""
+    passed in is not modified, unless ``h_out`` is given: the new SSM
+    state is then written into ``h_out`` (contiguous fp32 (B, I, N)),
+    which may be ``state.ssm`` itself to update it in place, and
+    ``new_state.ssm`` is ``h_out``."""
     _, t, d = x.shape
     dtr = cfg.resolved_dt_rank(d)
     n = cfg.state_dim
@@ -137,7 +142,7 @@ def mamba_forward(params: Params, cfg: MambaConfig, x: torch.Tensor,
     y, h_final = ops.mamba_selective_scan(
         dt.contiguous(), xc.float().contiguous(), bmat.float().contiguous(),
         cmat.float().contiguous(), a_neg, params["d_skip"],
-        state.ssm.contiguous(), lens)
+        state.ssm.contiguous(), lens, h_out)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
     out = y @ params["out_proj"]
     return out, MambaState(conv=new_conv.to(state.conv.dtype), ssm=h_final)

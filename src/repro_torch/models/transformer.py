@@ -189,13 +189,14 @@ def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  st: ssm.MambaState, g: int,
                  valid_lens: Optional[torch.Tensor]) -> torch.Tensor:
     """Mamba block over x (B, T, d); group g of the entry's state ``st``
-    is updated in place (rows with valid_lens 0 keep theirs)."""
+    is updated in place (rows with valid_lens 0 keep theirs): the scan
+    writes the SSM state straight back into its slice."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, new = ssm.mamba_forward(p["mamba"], cfg.mamba, h,
                                ssm.MambaState(conv=st.conv[g],
-                                              ssm=st.ssm[g]), valid_lens)
+                                              ssm=st.ssm[g]), valid_lens,
+                               h_out=st.ssm[g])
     st.conv[g].copy_(new.conv)
-    st.ssm[g].copy_(new.ssm)
     return _ffn(p, cfg, x + y)
 
 

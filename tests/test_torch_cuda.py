@@ -90,6 +90,72 @@ def test_scan_kernel_matches_plain(gen, t, dtype, tol):
     assert torch.equal(h[1], h0[1])
 
 
+def _scan_args(gen, b, t, i, n, dtype):
+    dt = torch.nn.functional.softplus(_randn(gen, (b, t, i), torch.float32))
+    return (dt.to(dtype), _randn(gen, (b, t, i), dtype),
+            _randn(gen, (b, t, n), dtype), _randn(gen, (b, t, n), dtype),
+            -torch.exp(_randn(gen, (i, n), torch.float32)),
+            _randn(gen, (i,), torch.float32),
+            0.5 * _randn(gen, (b, i, n), torch.float32))
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_scan_kernel_state_dims(gen, n, dtype, tol):
+    """N 8 (one lane per channel) and N 16 (two) over T-tile edges
+    (T 70), a ragged I and lens with a 0; a padded row's state is its
+    unpadded run's, bit for bit."""
+    b, t, i = 3, 70, 200
+    args = _scan_args(gen, b, t, i, n, dtype)
+    lens = torch.tensor([70, 0, 33], dtype=torch.int32, device="cuda")
+    y, h = mamba_selective_scan_cuda(*args, lens)
+    y_ref, h_ref = ref.mamba_selective_scan_ref(*args, lens)
+    torch.testing.assert_close(y, y_ref, atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_ref, atol=tol, rtol=tol)
+    assert torch.equal(h[1], args[6][1])
+    one = [v[2:3, :33].contiguous() for v in args[:4]]
+    _, h_one = mamba_selective_scan_cuda(*one, *args[4:6],
+                                         args[6][2:3].contiguous())
+    assert torch.equal(h_one[0], h[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_carry_split_bitwise(gen, dtype):
+    """A T 70 call split in two at t = 1, 31, 32, 33 and 64 (before, at
+    and after the 32-step tiles' edges), h0 carried between the parts:
+    the bits of one call."""
+    b, t, i, n = 2, 70, 256, 16
+    args = _scan_args(gen, b, t, i, n, dtype)
+    y_full, h_full = mamba_selective_scan_cuda(*args)
+    for cut in (1, 31, 32, 33, 64):
+        y1, h_mid = mamba_selective_scan_cuda(
+            *[v[:, :cut].contiguous() for v in args[:4]], *args[4:])
+        y2, h_end = mamba_selective_scan_cuda(
+            *[v[:, cut:].contiguous() for v in args[:4]], *args[4:6], h_mid)
+        assert torch.equal(torch.cat([y1, y2], 1), y_full), cut
+        assert torch.equal(h_end, h_full), cut
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_in_place(gen, dtype):
+    """h_out is h0, a view of a stacked (G, B, I, N) state: the bits of
+    the call with a fresh h_final, a row of length 0 unchanged, the
+    other group untouched."""
+    b, t, i, n = 4, 40, 256, 16
+    args = _scan_args(gen, b, t, i, n, dtype)
+    lens = torch.tensor([40, 0, 7, 1], dtype=torch.int32, device="cuda")
+    y_sep, h_sep = mamba_selective_scan_cuda(*args, lens)
+    stack = torch.stack([args[6], 0.5 * _randn(gen, (b, i, n),
+                                               torch.float32)])
+    other = stack[1].clone()
+    y, h = mamba_selective_scan_cuda(*args[:6], stack[0], lens, stack[0])
+    assert h.data_ptr() == stack[0].data_ptr()
+    assert torch.equal(y, y_sep) and torch.equal(stack[0], h_sep)
+    assert torch.equal(stack[0][1], args[6][1])
+    assert torch.equal(stack[1], other)
+
+
 @pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("d", [64, 128])
 def test_prefill_bf16_heads_per_cta(gen, g, d):
