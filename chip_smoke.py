@@ -18,12 +18,22 @@ Phases (any failure exits non-zero):
      T 4096);
   3. exactness: llama3.1-8b and the dense-FFN Jamba hybrid, each reduced
      to d_model 256 in fp32 -- greedy tokens from raw prefill+decode,
-     engine device rows and host-offloaded rows must be identical;
+     engine device rows and host-offloaded rows must be identical; and
+     serving-chunked's chat traffic must give the same streams with and
+     without the prefix cache, rebalancing and preemption;
   4. serving: InferenceServer on llama3.1-8b at its published width (bf16,
-     random weights from a seed), 8 requests over 4 device + 4 host slots;
+     random weights from a seed), 8 requests over 4 device + 4 host slots,
+     whole-prompt prefill, no prefix cache or tier moves;
   5. serving-hybrid: the same traffic on Jamba-1.5-Large with dense FFNs
      at its published width, depth cut to 2 periods (16 layers);
-  6. cli: ``python -m repro_torch.launch.serve`` with its defaults.
+  6. serving-chunked: the reference's default configuration (chunked
+     prefill beside decode, the prefix cache on both tiers, migration,
+     preemption) on multi-turn chat, llama3.1-8b and the 8-layer Jamba
+     at published width: every mechanism must fire, the streams must
+     equal a run with the prefix cache and tier moves off (a stream may
+     part only at a top-2 tie of two logit ULPs), and the pool must end
+     whole;
+  7. cli: ``python -m repro_torch.launch.serve`` with its defaults.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
@@ -93,6 +103,18 @@ SCAN_MAIN = dict(inner=16384, state=16, mamba_layers=14, rows=8,
 LONG_DECODE = dict(rows=8, cache_len=8192, min_len=7936)
 LONG_PREFILL = dict(rows=1, prompt_len=4096)
 LONG_SCAN = dict(rows=1, prompt_len=4096)      # one long prompt into Jamba
+# what serving-chunked's second run turns off (chunked prefill stays on)
+FEATURES_OFF = dict(prefix_cache=False, tier_rebalance=False,
+                    preemption=False)
+# 4 conversations x 3 turns over one shared system prompt; each turn's
+# prompt is the previous prompt, its output and new user tokens (176,
+# 240, 304 tokens: 3-5 chunks of 64); each conversation submits its next
+# turn when the last one finishes; one priority-1 request (400 tokens ->
+# 96) arrives once both device slots hold priority-0 residents with one
+# token left to decode (see chat_run)
+CHAT = dict(conversations=4, turns=3, system_len=128, user_len=48,
+            output_len=16, urgent_len=400, urgent_output=96, device_slots=2,
+            host_slots=4, cache_len=512, page_size=32)
 CARD = ""           # nvidia-smi's "name, power.limit", set by phase 1
 # a part of each hand-written kernel's name, as the profiler reports it
 PORT_KERNELS = {"decode_attention": "decode_kernel",
@@ -635,7 +657,58 @@ def bench_main_shapes(gen) -> dict:
         "src/repro/kernels/prefill_attention.py:128", err, times, nbytes,
         flops, "bfloat16",
         f"B{pb} T{t} S{s} H{h} KV{kv} D{d} q_offset 0 bf16")
+
     return out
+
+
+def bench_chunk_shape(gen) -> dict:
+    """Prefill attention at a chunk of the chunked path: every staging row
+    (2 device + 4 host slots) advances 64 tokens at its own offset into a
+    512 cache; kernel vs plain version vs SDPA with the causal mask made
+    explicit.  The bound counts the keys each row's chunk sees."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    dt, el = torch.bfloat16, 2
+    h, kv, d, s = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"], \
+        CHAT["cache_len"]
+    cb, ct = CHAT["device_slots"] + CHAT["host_slots"], 64
+    q = _randn(gen, (cb, ct, h, d), dt, "cuda")
+    k = _randn(gen, (cb, s, kv, d), dt, "cuda")
+    v = _randn(gen, (cb, s, kv, d), dt, "cuda")
+    off = torch.linspace(0, s - ct, cb, device="cuda").round().to(
+        torch.int32)
+    got = prefill_attention_cuda(q, k, v, None, off)
+    err, ok = close(got, ref.prefill_attention_ref(q, k, v, None, off),
+                    TOL["prefill", "bfloat16"])
+    if not ok:
+        fail(f"prefill at the chunk shape: err {err}")
+    qpos = off[:, None] + torch.arange(ct, device="cuda")[None, :]
+    mask = (torch.arange(s, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]             # (B, 1, T, S)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    times = _times(
+        lambda: prefill_attention_cuda(q, k, v, None, off),
+        lambda: ref.prefill_attention_ref(q, k, v, None, off),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True))
+    visible = int((off.long() + ct).sum())     # keys each row's chunk sees
+    pairs = int((ct * off.long() + ct * (ct + 1) // 2).sum())
+    nbytes = 2 * cb * ct * h * d * el + 2 * visible * kv * d * el + 4 * cb
+    flops = 4 * pairs * h * d
+    chunk = _record(
+        "prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:128", err, times, nbytes,
+        flops, "bfloat16",
+        f"chunk B{cb} T{ct} S{s} H{h} KV{kv} D{d} q_offset "
+        f"{off.tolist()} bf16")
+    rec = {key: chunk[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "max_abs_err")}
+    rec["shape"] = (f"B{cb} T{ct} S{s} H{h} KV{kv} D{d} q_offset "
+                    f"{off.tolist()} bf16")
+    return rec
 
 
 def graph_launches(fn, calls: int, kernel: str) -> dict:
@@ -834,6 +907,8 @@ def phase_kernels() -> dict:
     records = bench_main_shapes(gen)
     bench_long_shapes(gen)
     records["mamba_selective_scan"] = bench_scan(gen)
+    # last, so every earlier case draws the inputs it drew without it
+    records["prefill_attention"]["chunk_shape"] = bench_chunk_shape(gen)
     return records
 
 
@@ -901,15 +976,26 @@ def _exactness(cfg) -> None:
 
 def phase_exactness() -> None:
     """llama3.1-8b and the dense-FFN Jamba hybrid (16 layers, attention
-    at 3 and 11), each reduced to d_model 256 in fp32."""
+    at 3 and 11), each reduced to d_model 256 in fp32: device, host and
+    raw rows agree; then the chat traffic of serving-chunked gives the
+    same streams with and without the prefix cache and tier moves.  The
+    hybrid's chat runs with bf16 parameters: with fp32 ones the bf16 conv
+    window rounds the Mamba input at every chunk boundary, so a prompt's
+    state depends on where its chunks start (the reference's too; ROADMAP
+    queue 3), and a prefix hit moves the boundaries."""
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.models import init_params
     fp32 = dict(param_dtype="float32", compute_dtype="float32")
-    _exactness(dataclasses.replace(
+    llama = dataclasses.replace(
         get_config("llama3.1-8b").reduced(layers=4, d_model=256, vocab=512),
-        **fp32))
-    _exactness(dataclasses.replace(
-        hybrid_config().reduced(d_model=256, vocab=512), **fp32))
+        **fp32)
+    hybrid = hybrid_config().reduced(d_model=256, vocab=512)
+    _exactness(llama)
+    _exactness(dataclasses.replace(hybrid, **fp32))
+    for cfg in (llama, hybrid):
+        _chat_identity(cfg, init_params(cfg, seed=0, device="cuda"), "cuda",
+                       f"{cfg.name} {cfg.param_dtype} chat", whole=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1035,11 +1121,15 @@ def _serve_published(cfg, traced_iters: int) -> dict:
     # one resident's pages over every attention layer
     pages_per_resident = (-(-(plen + out_len) // page_size)) \
         * cfg.num_attn_layers
+    # whole-prompt bucketed prefill and no tier moves or prefix cache:
+    # the path these two phases have measured since their first runs
+    # (serving-chunked drives the defaults)
     scfg = ServerConfig(device_slots=MAIN["device_slots"],
                         host_slots=MAIN["host_slots"],
                         cache_len=MAIN["cache_len"], page_size=page_size,
                         host_pool_pages=pages_per_resident
-                        * MAIN["host_slots"], device="cuda")
+                        * MAIN["host_slots"], device="cuda",
+                        chunk_tokens=0, **FEATURES_OFF)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, plen).tolist()
                for _ in range(MAIN["requests"])]
@@ -1130,7 +1220,427 @@ def phase_serving_hybrid() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5
+# phase 6: the reference's default serving path on multi-turn chat
+# ---------------------------------------------------------------------------
+
+def chat_pool_pages(cfg) -> int:
+    """Host pool pages: four first-turn residents (176 + 16 tokens, 6
+    pages per attention layer) plus 3 pages per layer for prefix chains,
+    which the LRU reclaims under pressure.  With two first-turn residents
+    on the host, the urgent request's 496 tokens (16 pages per layer) do
+    not fit there and a first-turn victim's 6 do: it preempts."""
+    first = CHAT["system_len"] + CHAT["user_len"] + CHAT["output_len"]
+    return cfg.num_attn_layers * (4 * -(-first // CHAT["page_size"]) + 3)
+
+
+def chat_config(cfg, device: str, **features):
+    from repro_torch.serving import ServerConfig
+    return ServerConfig(device_slots=CHAT["device_slots"],
+                        host_slots=CHAT["host_slots"],
+                        cache_len=CHAT["cache_len"],
+                        page_size=CHAT["page_size"],
+                        host_pool_pages=chat_pool_pages(cfg), device=device,
+                        **features)
+
+
+class _Watch:
+    """Device-side watches over one run, read once at its end (no sync on
+    the way): a NaN flag over every logit row a token is taken from, and
+    each token's top-2 logit gap and top logit, keyed by (request id,
+    token index) -- device rows at every commit, host rows when their
+    token completes, first tokens at graduation."""
+
+    def __init__(self, device: str):
+        import torch
+        self.nan = torch.zeros((), dtype=torch.bool, device=device)
+        self.keys, self.tops = [], []
+        self.last = None
+        self.dtype = None
+
+    def rows(self, logits, rows, keys):
+        import torch
+        if len(rows) == 0:
+            return
+        self.dtype = logits.dtype
+        sel = logits[torch.as_tensor(rows, device=logits.device)].float()
+        self.tops.append(torch.topk(sel, 2, dim=-1).values)
+        self.keys += keys
+        self.nan.logical_or_(torch.isnan(sel).any())
+
+    def margins(self) -> dict:
+        """(request id, token index) -> (top-2 gap, top logit); a token
+        recomputed after a recompute preemption keeps its last value."""
+        import torch
+        if not self.tops:
+            return {}
+        tops = torch.cat(self.tops).cpu().tolist()
+        return {k: (t[0] - t[1], t[0]) for k, t in zip(self.keys, tops)}
+
+    def __enter__(self):
+        from repro_torch.serving import engine
+        watch = self
+        commit = engine.Engine._commit_device
+        overlap = engine.Engine._step_overlap
+        finish = engine.finish_chunks
+
+        def commit_watched(eng, logits, rows):
+            watch.last = logits
+            watch.rows(logits, rows, [
+                (eng.lc.slots[i].request_id, len(eng.lc.slots[i].output))
+                for i in rows])
+            return commit(eng, logits, rows)
+
+        def overlap_watched(eng, tokens, cohort, rows, **kw):
+            before = eng.stats.host_tokens
+            valid = list(cohort.valid_slots)
+            overlap(eng, tokens, cohort, rows, **kw)
+            if eng.stats.host_tokens > before:
+                reqs = [eng.lc.host_requests[cohort.slot_rids[i]]
+                        for i in valid]
+                watch.rows(watch.last, [eng.e.device_slots + i
+                                        for i in valid],
+                           [(r.request_id, len(r.output) - 1)
+                            for r in reqs])
+
+        def finish_watched(eng, plan, clogits):
+            staging = eng.lc.staging
+            done = [row for row, c in zip(plan.rows, plan.lens)
+                    if staging[row].consumed + c
+                    >= staging[row].req.prompt_len]
+            watch.rows(clogits, done, [
+                (staging[row].req.request_id, len(staging[row].req.output))
+                for row in done])
+            return finish(eng, plan, clogits)
+
+        self._saved = (commit, overlap, finish)
+        engine.Engine._commit_device = commit_watched
+        engine.Engine._step_overlap = overlap_watched
+        engine.finish_chunks = finish_watched
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine
+        (engine.Engine._commit_device, engine.Engine._step_overlap,
+         engine.finish_chunks) = self._saved
+
+
+def logit_ulp(dtype, x: float) -> float:
+    """One unit in the last place of ``x`` in the logits' dtype."""
+    import math
+    import torch
+    mant = {torch.bfloat16: 7, torch.float16: 10}.get(dtype, 23)
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - mant)
+
+
+def check_pool(engine) -> str:
+    """No leaked pages and no refcount below one: every page's refcount
+    is its number of occurrences in the chains, free pages are the
+    unreferenced ones, and the only owners left are prefix-cache entries
+    the cache still indexes."""
+    pool = engine.executor.pool
+    occ = {}
+    for chain in pool.page_tables.values():
+        for p in chain:
+            occ[p] = occ.get(p, 0) + 1
+    owners = {owner for owner, _ in pool.page_tables}
+    entries = {e.owner for e in engine.prefix.entries.values()
+               if e.tier == "host"} if engine.prefix is not None else set()
+    if occ != pool.page_refs or min(pool.page_refs.values(), default=1) < 1:
+        fail("pool refcounts do not balance the page chains")
+    if set(pool.free_pages) & set(occ) or \
+            len(pool.free_pages) + len(occ) != pool.pages.shape[1]:
+        fail("pool pages leaked or double-freed")
+    if owners - entries:
+        fail(f"pool owners {sorted(owners - entries)} outlived their "
+             "requests")
+    return (f"{len(occ)} pages held by {len(owners)} prefix entries, "
+            f"{len(pool.free_pages)} free of {pool.pages.shape[1]}")
+
+
+def chat_run(cfg, params, scfg, *, seed: int = 0, trace_iters: int = 0):
+    """Drive the chat traffic through ``InferenceServer`` until every turn
+    and the urgent request finished.  Returns (outputs by (conversation,
+    turn) and "urgent", stats, wall seconds, (watch, each stream's
+    per-token (top-2 gap, top logit)), server's engine, traced ops or
+    None).  With ``trace_iters``, the run is cut short:
+    ``torch.profiler`` traces that many iterations once chunks co-run
+    with decode on both tiers, and the traced kernels are returned."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import InferenceServer, Request
+    from repro_torch.serving.request import Phase
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+    system = rng.integers(0, v, CHAT["system_len"]).tolist()
+    users = [[rng.integers(0, v, CHAT["user_len"]).tolist()
+              for _ in range(CHAT["turns"])]
+             for _ in range(CHAT["conversations"])]
+    urgent_prompt = rng.integers(0, v, CHAT["urgent_len"]).tolist()
+    n_out = CHAT["output_len"]
+    outs, rids, traced = {}, {}, None
+    with _Watch(scfg.device) as watch, InferenceServer(cfg, params,
+                                                       scfg) as server:
+        eng = server.engine
+        live = {c: (0, server.submit(Request(prompt=system + users[c][0],
+                                             max_new_tokens=n_out)))
+                for c in range(CHAT["conversations"])}
+        urgent = None
+        t0 = time.perf_counter()
+        for it in range(20000):
+            if trace_iters and eng.stats.chunk_co_run_iterations >= 2 \
+                    and eng.lc.host_requests:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA],
+                             acc_events=True) as prof:
+                    t_tr = time.perf_counter()
+                    for _ in range(trace_iters):
+                        server.step()
+                    torch.cuda.synchronize()
+                    traced = (prof, time.perf_counter() - t_tr)
+                break
+            server.step()
+            # the urgent request arrives once both device slots hold
+            # priority-0 residents with one token left: the swapped victim
+            # finishes on the host while the urgent request still decodes
+            # (so no slot frees to migrate it back), publishes its prompt
+            # by forking its pool chains, and its next turn hits that entry
+            if urgent is None and all(
+                    r is not None and r.priority == 0
+                    and r.phase is Phase.DECODE_DEVICE
+                    and len(r.output) == n_out - 1 for r in eng.slots):
+                urgent = server.submit(Request(
+                    prompt=urgent_prompt, max_new_tokens=CHAT[
+                        "urgent_output"], priority=1))
+            for c, (turn, h) in list(live.items()):
+                if not h.done:
+                    continue
+                if h.failed:
+                    fail(f"conversation {c} turn {turn}: {h.error}")
+                outs[c, turn] = list(h.output)
+                rids[c, turn] = h.request_id
+                if turn + 1 < CHAT["turns"]:
+                    prompt = list(h.request.prompt) + list(h.output) \
+                        + users[c][turn + 1]
+                    live[c] = (turn + 1, server.submit(Request(
+                        prompt=prompt, max_new_tokens=n_out)))
+                else:
+                    del live[c]
+            if not live and urgent is not None and urgent.done:
+                break
+        else:
+            fail("the chat traffic did not finish in 20000 iterations")
+        if scfg.device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not trace_iters:
+            if urgent is None:
+                fail("both device slots never held priority-0 residents")
+            if urgent.failed:
+                fail(f"the urgent request failed: {urgent.error}")
+            outs["urgent"] = list(urgent.output)
+            rids["urgent"] = urgent.request_id
+        stats = server.stats
+    margins = watch.margins()
+    return outs, stats, wall, (watch, {k: [margins.get((rid, j))
+                                          for j in range(len(outs[k]))]
+                                      for k, rid in rids.items()}), eng, \
+        traced
+
+
+def compare_streams(on: dict, off: dict, on_m: dict, off_m: dict,
+                    dtype):
+    """Greedy streams of two runs that placed requests on other tiers.
+    A device row's decode K/V is bf16 and a host row's fp32, and the host
+    sums attention in numpy: a token whose top-2 logits are within two
+    ULPs of each other (in either run) may go either way, and the
+    conversation's later turns then follow different prompts.  Returns
+    (identical streams, descriptions of partings at a tie, of other
+    partings)."""
+    same, flips, other, parted = 0, [], [], set()
+    for key in on:
+        a, b = on[key], off.get(key)
+        if a == b:
+            same += 1
+            continue
+        conv = key[0] if isinstance(key, tuple) else key
+        if conv in parted:
+            continue                  # downstream of a flip in its history
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        ma = on_m[key][j] if j < len(on_m[key]) else None
+        mb = off_m[key][j] if j < len(off_m[key]) else None
+        tie = [m for m in (ma, mb) if m is not None
+               and m[0] <= 2 * logit_ulp(dtype, m[1])]
+        parted.add(conv)
+        if tie:
+            flips.append(f"{key} at token {j}, top-2 gap {tie[0][0]:.3e} at "
+                         f"logit {tie[0][1]:.3f}")
+        else:
+            other.append(f"{key} at token {j} ({a[j:j + 3]} against "
+                         f"{b[j:j + 3]}), top-2 gaps {ma} / {mb}")
+    return same, flips, other
+
+
+def _chat_identity(cfg, params, device: str, label: str,
+                   wrappers=None, whole: bool = False) -> dict:
+    """The chat traffic with the reference's defaults (the measured run),
+    then again with the prefix cache, rebalancing and preemption off:
+    every stream identical but where it parts at a logit tie
+    (``compare_streams``), every mechanism fired, the pool whole at the
+    end.  ``wrappers``' launch counts are zeroed just before the measured
+    run and read just after it, with the peak device memory.  ``whole``
+    also runs the traffic with whole-prompt prefill and reports how its
+    streams compare with the chunked ones."""
+    import torch
+    if wrappers:
+        for fn in wrappers.values():
+            fn.launches = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    on, stats, wall, watch, eng, _ = chat_run(
+        cfg, params, chat_config(cfg, device))
+    launches = {name: fn.launches for name, fn in (wrappers or {}).items()}
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else None)
+    pool = check_pool(eng)
+    off, off_stats, off_wall, off_watch, _, _ = chat_run(
+        cfg, params, chat_config(cfg, device, **FEATURES_OFF))
+    counters = dict(
+        prefill_chunks=stats.prefill_chunks,
+        chunk_co_run_iterations=stats.chunk_co_run_iterations,
+        prefix_device_hits=stats.prefix_device_hits,
+        prefix_host_hits=stats.prefix_host_hits,
+        migrations=stats.migrations, preemptions=stats.preemptions)
+    (watch, on_m), (off_watch, off_m) = watch, off_watch
+    gap = min((m[0] for ms in on_m.values() for m in ms if m is not None),
+              default=float("nan"))
+    log(f"  {label}: {counters}, prefix hit tokens "
+        f"{stats.prefix_hit_tokens}, recompute preemptions "
+        f"{stats.preemption_recomputes}; pool at the end: {pool}; smallest "
+        f"top-2 logit gap {gap:.3e}")
+    if bool(watch.nan) or bool(off_watch.nan):
+        fail(f"{label}: a logit was NaN")
+    zero = [k for k, n in counters.items() if n <= 0]
+    if zero:
+        fail(f"{label}: {zero} did not fire")
+    same, flips, other = compare_streams(on, off, on_m, off_m, watch.dtype)
+    log(f"  {label}: {same} of {len(on)} streams identical to the run with "
+        f"the prefix cache, rebalancing and preemption off ({wall:.2f} s "
+        f"and {off_wall:.2f} s wall)"
+        + ("" if not flips else "; parted at a tie (the conversation's "
+           "later turns follow): " + "; ".join(flips)))
+    if other:
+        fail(f"{label}: streams part by more than two logit ULPs: "
+             + "; ".join(other))
+    if whole:
+        # not a bar: whole-prompt prefill runs other GEMM shapes, so a
+        # token's K/V may differ in the last bit from the chunked path's
+        wh, _, _, (_, wh_m), _, _ = chat_run(cfg, params, chat_config(
+            cfg, device, chunk_tokens=0, **FEATURES_OFF))
+        same, flips, other = compare_streams(off, wh, off_m, wh_m,
+                                             watch.dtype)
+        log(f"  {label}: chunked against whole-prompt prefill (both with "
+            f"the features off): {same} of {len(wh)} streams identical"
+            + "".join(f"; parted at a tie: {f}" for f in flips)
+            + "".join(f"; parted: {f}" for f in other))
+    return dict(stats=stats, wall=wall, outs=on, gap=gap, flips=flips,
+                off_stats=off_stats, off_wall=off_wall, launches=launches,
+                peak=peak)
+
+
+def _chunked_published(cfg, trace_iters: int) -> dict:
+    """The chat traffic on ``cfg`` at published width (random bf16 weights,
+    seed 0): identity against the features-off run, the end-to-end
+    numbers of the measured (defaults) run, a traced window, and each
+    kernel's launches over the measured run."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.models.config import BlockKind
+    log(f"  {cfg.name}: {cfg.num_layers} layers (attention at "
+        f"{cfg.attn_layer_indices}), {cfg.param_dtype}, "
+        f"{cfg.param_count() / 1e9:.2f} B parameters; host pool "
+        f"{chat_pool_pages(cfg)} pages")
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    # warm-up: one short request through its own server, not measured
+    _serve_once(cfg, params, chat_config(cfg, "cuda"), [[1] * 70], 2)
+    torch.cuda.synchronize()
+    res = _chat_identity(cfg, params, "cuda", cfg.name, _kernel_wrappers())
+    launches, peak = res["launches"], res["peak"]
+    st, wall = res["stats"], res["wall"]
+    n_tok = sum(len(o) for o in res["outs"].values())
+    log(f"  measured run (defaults): {len(res['outs'])} requests, {n_tok} "
+        f"output tokens in {wall:.3f} s: {n_tok / wall:.2f} output "
+        f"tokens/s, {st.iterations} iterations ({st.iterations / wall:.2f}"
+        f" iterations/s); TTFT p50 {st.ttft_p50 * 1e3:.1f} ms, p95 "
+        f"{st.ttft_p95 * 1e3:.1f} ms; ITL p50 {st.itl_p50 * 1e3:.1f} ms; "
+        f"host wait {1e3 * st.host_wait_time / st.iterations:.3f} ms per "
+        f"iteration (host busy {st.host_busy_time:.3f} s, transfer "
+        f"{st.host_transfer_time:.3f} s); {st.prefill_chunks} chunks, "
+        f"{st.chunked_prefill_tokens} chunked tokens; strategies "
+        f"{st.strategy_counts}; peak device memory {peak:.2f} GiB; "
+        f"launches {launches} [{CARD}]")
+    ost, owall = res["off_stats"], res["off_wall"]
+    log(f"  features-off run: {n_tok / owall:.2f} output tokens/s, "
+        f"{ost.iterations} iterations ({ost.iterations / owall:.2f}/s); "
+        f"TTFT p50 {ost.ttft_p50 * 1e3:.1f} ms, p95 "
+        f"{ost.ttft_p95 * 1e3:.1f} ms; ITL p50 {ost.itl_p50 * 1e3:.1f} ms; "
+        f"host wait {1e3 * ost.host_wait_time / ost.iterations:.3f} ms per "
+        "iteration")
+    n_attn = cfg.num_attn_layers
+    n_mamba = sum(k == BlockKind.MAMBA
+                  for k in cfg.block_pattern) * cfg.num_groups
+    # at least one chunk call per iteration that ran a chunk, one decode
+    # per iteration with a device row
+    need = {"prefill_attention": n_attn * st.chunk_co_run_iterations,
+            "decode_attention": n_attn * st.chunk_co_run_iterations,
+            "mamba_selective_scan": n_mamba * st.chunk_co_run_iterations}
+    for name, n in need.items():
+        if launches[name] < n:
+            fail(f"{name} launched {launches[name]} times in the chunked "
+                 f"run; it needs at least {n}")
+    _, _, _, _, _, traced = chat_run(cfg, params, chat_config(cfg, "cuda"),
+                                     trace_iters=trace_iters)
+    prof, twall = traced
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) \
+                + us / trace_iters / 1e3
+    busy = sum(per_kernel.values()) * trace_iters / 1e3
+    log(f"  traced window ({trace_iters} iterations with a chunk beside "
+        f"device and host decode, separate run): "
+        f"{1e3 * twall / trace_iters:.2f} ms per iteration, device busy "
+        f"{100 * busy / twall:.1f}% (idle {100 * (1 - busy / twall):.1f}%);"
+        " top kernels by device time:")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:8.3f} ms/iter  {key[:100]}")
+    port = {name: sum(ms for key, ms in per_kernel.items() if tag in key)
+            for name, tag in PORT_KERNELS.items()}
+    log("  the port's kernels, device ms per iteration: "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in port.items()))
+    return launches
+
+
+def phase_serving_chunked() -> dict:
+    """The reference's default serving configuration on llama3.1-8b (32
+    layers) and the dense-FFN Jamba at published width, cut to one period
+    (8 layers: 7 Mamba, attention at 3) to save run time: llama's
+    features-off run alone takes ~1500 iterations, its host-tier turns
+    decoding at 33 iterations per token."""
+    from repro_torch.configs import get_config
+    log("  -- llama3.1-8b")
+    counts = _chunked_published(get_config("llama3.1-8b"), trace_iters=12)
+    log("  -- Jamba-1.5-Large, dense FFN, 8 layers")
+    hyb = _chunked_published(hybrid_config(num_layers=8), trace_iters=12)
+    return {name: counts[name] + hyb[name] for name in counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 7
 # ---------------------------------------------------------------------------
 
 
@@ -1154,7 +1664,8 @@ def phase_cli() -> None:
 # driver
 # ---------------------------------------------------------------------------
 
-PHASES = ("env", "kernels", "exactness", "serving", "serving-hybrid", "cli")
+PHASES = ("env", "kernels", "exactness", "serving", "serving-hybrid",
+          "serving-chunked", "cli")
 
 
 def main() -> int:
@@ -1193,6 +1704,10 @@ def main() -> int:
         log("== serving Jamba-1.5-Large (dense FFN, 16 layers) at published "
             "width")
         launches["serving-hybrid"] = phase_serving_hybrid()
+    if "serving-chunked" in phases:
+        log("== serving with the reference's defaults (chunked prefill, "
+            "prefix cache, migration, preemption): multi-turn chat")
+        launches["serving-chunked"] = phase_serving_chunked()
     if "cli" in phases:
         log("== python -m repro_torch.launch.serve")
         phase_cli()

@@ -164,17 +164,20 @@ class _Job:
 
 
 def stack_row_kv_to_pool_layers(cfg: ModelConfig, state: Any, row: int,
-                                plen: int) -> List[tuple]:
+                                plen: int, start: int = 0) -> List[tuple]:
     """Host (numpy fp32) copies of one state row's attention KV span
-    ``[0, plen)`` as the per-attention-layer [(k, v), ...] list
+    ``[start, plen)`` as the per-attention-layer [(k, v), ...] list
     ``HostExecutor.migrate_prompt`` takes, in absolute attention-layer
-    order.  A blocking device->host copy: it runs at admission."""
+    order -- the gather side of every device->host KV move (admission,
+    chunk streaming, preemption, prefix-cache demotion).  A blocking
+    device->host copy into fresh host memory: the caller may rewrite the
+    row as soon as it returns."""
     ordered: List[Any] = [None] * cfg.num_attn_layers
     for j, kind in enumerate(cfg.block_pattern):
         if kind != BlockKind.ATTN:
             continue
-        k = state.per_entry[j].k[:, row, :plen].float().cpu().numpy()
-        v = state.per_entry[j].v[:, row, :plen].float().cpu().numpy()
+        k = state.per_entry[j].k[:, row, start:plen].float().cpu().numpy()
+        v = state.per_entry[j].v[:, row, start:plen].float().cpu().numpy()
         for g in range(cfg.num_groups):
             abs_layer = g * cfg.pattern_period + j
             ordered[cfg.attn_layer_indices.index(abs_layer)] = (k[g], v[g])
@@ -270,6 +273,15 @@ class HostExecutor:
         for li, (k, v) in enumerate(per_layer_kv):
             self.pool.write_prompt(request_id, li, k, v,
                                    advance=(li == n_layers - 1))
+
+    def gather_request(self, request_id: int) -> List[tuple]:
+        """A resident's full per-attention-layer [(K, V), ...] from the
+        paged pool (dense attention-layer order) -- the gather side of a
+        host->device migration.  Safe only when no in-flight job can
+        touch its chains (the engine migrates at cohort token
+        boundaries)."""
+        return [self.pool.gather(request_id, li)
+                for li in range(self.cfg.num_attn_layers)]
 
     def free(self, request_id: int) -> None:
         self.pool.free(request_id)

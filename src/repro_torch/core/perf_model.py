@@ -7,7 +7,9 @@ times.  Yields the ``Timings`` the scheduler consumes.
 
 Port of ``repro/core/perf_model.py`` without the measured tables
 (``TablePerfModel``, ``OfflineProfiler``, the ``"measured"`` and
-``"file:"`` specs) and without the quantized host tier's pricing.
+``"file:"`` specs) and without the quantized host tier's pricing: the
+fp32 host pool is priced at the device's KV bytes per position, as the
+reference prices its fp32 pool.
 """
 from __future__ import annotations
 
@@ -137,6 +139,19 @@ class AnalyticPerfModel:
                       * (self.costs.kv_bytes_per_pos / 2) * 2)
         return linear + attn_flops / p.device_flops + p.kernel_overhead
 
+    def t_prefill_suffix(self, n_new: int, total_context: float) -> float:
+        """Prefill compute for the last ``n_new`` tokens of a
+        ``total_context``-long prompt (a prefix-cache continuation):
+        linear work scales with the suffix, each suffix query attends
+        the full cached context.  Equals ``t_prefill(T, T)`` when
+        ``n_new == total_context``."""
+        p = self.platform
+        linear = self.costs.linear_flops_per_token * n_new / p.device_flops
+        mean_ctx = max(total_context - n_new / 2.0, 1.0)
+        attn_flops = 2.0 * n_new * mean_ctx * (self.costs.kv_bytes_per_pos
+                                               / 2) * 2
+        return linear + attn_flops / p.device_flops + p.kernel_overhead
+
     def t_gatt(self, batch: int, context: float) -> float:
         """Device decode attention: KV-bandwidth bound."""
         p = self.platform
@@ -151,6 +166,30 @@ class AnalyticPerfModel:
         kv_bytes = (batch * max(context, 1.0)
                     * self.costs.kv_bytes_per_pos_layer * n_layers)
         return kv_bytes / p.host_bw + p.kernel_overhead
+
+    def t_transfer(self, n_bytes: float) -> float:
+        p = self.platform
+        return n_bytes / p.link_bw + p.link_latency
+
+    def t_migrate(self, n_tokens: int) -> float:
+        """Tier-move cost: a request's cached KV span over every
+        attention layer plus its recurrent-state row (hybrids) crossing
+        the device<->host link once -- charged against rebalance and
+        preemption decisions by the ``TierPlacer``."""
+        return self.t_transfer(max(n_tokens, 0) * self.costs.kv_bytes_per_pos
+                               + self.costs.state_bytes_per_row)
+
+    def t_recompute(self, prompt_tokens: int, emitted_tokens: int = 0
+                    ) -> float:
+        """Recompute-from-scratch preemption cost: re-prefill the whole
+        prompt and re-decode every token already emitted (mean attended
+        context grows from the prompt over the emitted span)."""
+        prompt_tokens = max(prompt_tokens, 1)
+        emitted = max(emitted_tokens, 0)
+        t = self.t_prefill(prompt_tokens, prompt_tokens)
+        mean_ctx = prompt_tokens + emitted / 2.0
+        t += emitted * (self.t_linear(1) + self.t_gatt(1, mean_ctx))
+        return t
 
     def n_g(self, context: float) -> float:
         """Device attention rate: KV positions scanned per second."""
@@ -263,5 +302,7 @@ class OnlineCalibrator:
             * self.host_scale
 
     def __getattr__(self, name: str):
-        # delegate everything else (t_linear, t_prefill, ...)
+        # delegate everything else (t_linear, t_prefill, t_migrate,
+        # t_recompute, ...): tier moves and replays are priced on the
+        # base model, uncorrected, as in the reference
         return getattr(self.base, name)

@@ -3,7 +3,10 @@
 Serves a model through the scheduler-driven ``InferenceServer`` on the
 card: requests come from a paper workload trace (``--workload``) or the
 synthetic default, and Algorithm 1 picks the execution strategy every
-iteration.  By default the architecture is reduced to a small geometry;
+iteration.  The defaults are the reference's: chunked prefill (64
+tokens) beside decode, the prefix cache, rebalancing, preemption with
+the recompute fallback; the ``--no-*`` flags and ``--chunk-tokens 0``
+turn them off.  By default the architecture is reduced to a small geometry;
 ``--published`` serves it at its published width (``--layers`` then cuts
 depth only).  Weights are random, from ``--seed``.
 
@@ -54,7 +57,32 @@ def main() -> None:
     ap.add_argument("--host-workers", type=int, default=0,
                     help="host-attention worker threads per job "
                          "(0 = auto: cpu_count - 1)")
+    ap.add_argument("--chunk-tokens", type=int, default=64,
+                    help="chunked-prefill budget per iteration while "
+                         "decode is active (0 = whole-prompt prefill "
+                         "before decode)")
     ap.add_argument("--no-offload", action="store_true")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable the cross-request prefix cache (tokens "
+                         "are identical either way)")
+    ap.add_argument("--prefix-cache-slots", type=int, default=2,
+                    help="device-resident prefix-cache entries (0 = "
+                         "host-pool-only caching)")
+    ap.add_argument("--no-tier-rebalance", action="store_true",
+                    help="disable host->device migration when device "
+                         "slots free up")
+    ap.add_argument("--no-preemption", action="store_true",
+                    help="disable SLO-aware preemptive admission (urgent "
+                         "requests demoting low-priority device residents "
+                         "to the host tier)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="TTFT deadline (seconds from arrival) stamped on "
+                         "every generated request; impossible deadlines "
+                         "are rejected at admission, late first tokens "
+                         "count as deadline misses")
+    ap.add_argument("--no-recompute-fallback", action="store_true",
+                    help="disable recompute-from-scratch preemption "
+                         "(blocked swaps requeue the urgent request)")
     ap.add_argument("--no-stream", action="store_true",
                     help="suppress the per-token stream of request 0")
     ap.add_argument("--device", default="cuda",
@@ -82,6 +110,12 @@ def main() -> None:
         cache_len=args.cache_len,
         enable_offload=not args.no_offload, host_workers=args.host_workers,
         device=str(device), platform=args.platform,
+        chunk_tokens=args.chunk_tokens,
+        prefix_cache=not args.no_prefix_cache,
+        prefix_cache_slots=args.prefix_cache_slots,
+        tier_rebalance=not args.no_tier_rebalance,
+        preemption=not args.no_preemption, deadline=args.deadline,
+        recompute_fallback=not args.no_recompute_fallback,
         perf_model=args.perf_model,
         workload=None if args.workload in (None, "synthetic")
         else args.workload,
@@ -129,9 +163,26 @@ def main() -> None:
     if stats.ttft_p50 is not None:
         print(f"TTFT p50/p95: {stats.ttft_p50 * 1e3:.1f}/"
               f"{stats.ttft_p95 * 1e3:.1f} ms")
-    print(f"occupancy device={stats.device_occupancy:.2f}/"
-          f"{scfg.device_slots} host={stats.host_occupancy:.2f}/"
-          f"{scfg.host_slots}; prefill shapes {stats.prefill_compilations}")
+    if stats.prefill_chunks:
+        print(f"chunked prefill: {stats.prefill_chunks} chunks "
+              f"({stats.chunked_prefill_tokens} tokens), "
+              f"{stats.chunk_co_run_iterations} iterations co-ran with "
+              "decode")
+    if stats.prefix_lookups:
+        print(f"prefix cache: {stats.prefix_hits}/{stats.prefix_lookups} "
+              f"hits ({stats.prefix_device_hits} device rows, "
+              f"{stats.prefix_host_hits} host pool), "
+              f"{stats.prefix_hit_tokens} prompt tokens served")
+    print(f"tier moves: {stats.migrations} migrations, "
+          f"{stats.preemptions} preemptions, "
+          f"{stats.preemption_recomputes} recompute preemptions; occupancy "
+          f"device={stats.device_occupancy:.2f}/{scfg.device_slots} "
+          f"host={stats.host_occupancy:.2f}/{scfg.host_slots}; prefill "
+          f"shapes {stats.prefill_compilations}")
+    if stats.deadline_misses or stats.deadline_rejections:
+        print(f"SLO: {stats.deadline_misses} deadline misses, "
+              f"{stats.deadline_rejections} impossible-deadline "
+              "rejections")
     if stats.host_busy_time:
         print(f"host attention busy: {stats.host_busy_time:.2f}s "
               f"({100 * stats.host_busy_time / wall:.0f}% of wall)")

@@ -1,11 +1,12 @@
-"""Public model API: init / weight import / prefill / decode.
+"""Public model API: init / weight import / prefill (whole, bucketed,
+chunked) / decode, and the fused decode + prefill-chunk iteration.
 
 Causal stacks of attention and Mamba blocks with dense FFNs and token
 inputs; every entry point takes an explicit ``device``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,6 +139,68 @@ def prefill_bucketed(params: ModelParams, cfg: ModelConfig,
     rows = torch.arange(b, device=tokens.device)
     x_last = x[rows, prompt_lens.long() - 1]
     return _logits(params, cfg, x_last), new_state
+
+
+def prefill_chunk(params: ModelParams, cfg: ModelConfig,
+                  tokens: torch.Tensor, chunk_lens: torch.Tensor,
+                  state: StackState) -> Tuple[torch.Tensor, StackState]:
+    """Advance a batch of in-progress prefills by one right-padded chunk.
+
+    tokens: (B, C) -- row b's next ``chunk_lens[b]`` prompt tokens,
+    right-padded to C (rows with ``chunk_lens`` 0 ride along idle);
+    ``state`` is the staging state, whose ``lengths`` count each row's
+    tokens already prefilled.  Queries run at absolute positions
+    ``lengths + i`` against the accumulated K/V, so causality hides every
+    padded or idle position; Mamba blocks resume their carried state and
+    freeze at ``chunk_lens[b]``.  K/V and state are written in place.
+
+    Returns (logits (B, V) of each row's last real chunk token -- only
+    meaningful for rows whose prompt completes in this chunk -- and the
+    state with ``lengths`` advanced by ``chunk_lens``, not by C: junk K/V
+    past a row's real chunk end lies beyond its length, in the causal
+    future of every later query, and is overwritten as the row advances).
+    """
+    b, c = tokens.shape
+    x = embed(params.embedding, tokens)
+    positions = state.lengths[:, None] + torch.arange(
+        c, dtype=torch.int32, device=tokens.device)[None, :]
+    lens = chunk_lens.to(torch.int32)
+    x, new_state = transformer.stack_forward(params.blocks, cfg, x,
+                                             positions, state,
+                                             valid_lens=lens)
+    rows = torch.arange(b, device=tokens.device)
+    x_last = x[rows, lens.long().clamp(min=1) - 1]
+    return _logits(params, cfg, x_last), StackState(
+        per_entry=new_state.per_entry,
+        lengths=state.lengths + lens.to(state.lengths.dtype))
+
+
+def decode_with_chunked_prefill(
+        params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
+        state: StackState, host: Optional[HostIO],
+        chunk_tokens: torch.Tensor, chunk_lens: torch.Tensor,
+        chunk_state: StackState,
+        after_decode: Optional[Callable[[Optional[QKVOut]], None]] = None):
+    """One engine iteration's device work: the unified decode step and one
+    prefill chunk, enqueued back to back on the current stream.
+
+    ``after_decode(qkv_out)`` runs on the host between the two, once the
+    decode step is enqueued and before the chunk is: the engine records
+    the event the host job waits on there and submits the job, so host
+    attention overlaps the chunk's compute (the widened window of
+    ASYNC_OVERLAP / ASYM_PIPELINE).
+
+    Returns ``(logits, new_state, qkv_out, x_final, chunk_logits,
+    new_chunk_state)`` -- the first four as ``decode_step``, the last two
+    as ``prefill_chunk``.
+    """
+    logits, new_state, qkv_out, x_final = decode_step(params, cfg, tokens,
+                                                      state, host)
+    if after_decode is not None:
+        after_decode(qkv_out)
+    chunk_logits, new_chunk = prefill_chunk(params, cfg, chunk_tokens,
+                                            chunk_lens, chunk_state)
+    return logits, new_state, qkv_out, x_final, chunk_logits, new_chunk
 
 
 def decode_step(params: ModelParams, cfg: ModelConfig,

@@ -6,6 +6,8 @@ Port of the Mamba part of ``repro/models/ssm.py``.  The contract:
   * ``mamba_init_state(cfg, d_model, batch, ...)`` -- zero decode state
   * ``mamba_forward(params, cfg, x, state, valid_lens, h_out)``
                                                  -> (y, new_state)
+  * ``mamba_forward_chunk(params, cfg, x, state, chunk_lens, ...)`` --
+    the same block resuming a chunked prefill from its carried state
 
 ``x`` is (B, T, d_model); decode is the same block at T = 1.  The
 selective scan itself runs in ``kernels.ops.mamba_selective_scan`` (the
@@ -146,3 +148,18 @@ def mamba_forward(params: Params, cfg: MambaConfig, x: torch.Tensor,
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
     out = y @ params["out_proj"]
     return out, MambaState(conv=new_conv.to(state.conv.dtype), ssm=h_final)
+
+
+def mamba_forward_chunk(params: Params, cfg: MambaConfig, x: torch.Tensor,
+                        state: MambaState, chunk_lens: torch.Tensor,
+                        q_offset: Optional[torch.Tensor] = None,
+                        h_out: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, MambaState]:
+    """Resume a Mamba scan from the carried ``state`` (conv window and
+    SSM state of positions < ``q_offset``) and consume ``chunk_lens[b]``
+    real tokens per row -- the recurrent analogue of attention's
+    ``q_offset``.  The offset is unused: a recurrence holds its past in
+    the state, so resuming is the length-masked forward from it, and a
+    row with ``chunk_lens`` 0 keeps its state bit for bit."""
+    del q_offset
+    return mamba_forward(params, cfg, x, state, chunk_lens, h_out)

@@ -192,10 +192,13 @@ def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     is updated in place (rows with valid_lens 0 keep theirs): the scan
     writes the SSM state straight back into its slice."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, new = ssm.mamba_forward(p["mamba"], cfg.mamba, h,
-                               ssm.MambaState(conv=st.conv[g],
-                                              ssm=st.ssm[g]), valid_lens,
-                               h_out=st.ssm[g])
+    carried = ssm.MambaState(conv=st.conv[g], ssm=st.ssm[g])
+    if valid_lens is None:
+        y, new = ssm.mamba_forward(p["mamba"], cfg.mamba, h, carried,
+                                   h_out=st.ssm[g])
+    else:
+        y, new = ssm.mamba_forward_chunk(p["mamba"], cfg.mamba, h, carried,
+                                         valid_lens, h_out=st.ssm[g])
     st.conv[g].copy_(new.conv)
     return _ffn(p, cfg, x + y)
 
@@ -209,7 +212,9 @@ def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
     recurrent state into ``state`` in place; returns (x, state with
     lengths + T).  ``valid_lens`` (B,) counts each row's real tokens:
     Mamba blocks freeze their state past it; attention ignores it (the
-    absolute-position causal mask already hides padded positions)."""
+    absolute-position causal mask already hides padded positions).  A
+    chunk of a prefill advances the lengths by its real tokens instead
+    (``model.prefill_chunk``)."""
     check_supported(cfg)
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                 x.device)

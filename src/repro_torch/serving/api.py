@@ -40,6 +40,23 @@ class ServerConfig:
     enable_offload: bool = True
     host_workers: int = 0
     device: str = "cuda"
+    # chunked prefill co-scheduled with decode: the per-iteration prompt
+    # token budget while decode runs (the scheduler may grant less);
+    # 0 = whole-prompt bucketed prefill before decode
+    chunk_tokens: int = 64
+    # --- request lifecycle -------------------------------------------------
+    # host->device migration when a device slot frees and it pays off
+    tier_rebalance: bool = True
+    # urgent requests may demote strictly lower-priority device residents
+    preemption: bool = True
+    # recompute-from-scratch preemption when a swap has no host room
+    recompute_fallback: bool = True
+    # default TTFT deadline (seconds from arrival) stamped onto
+    # build_requests() workloads; None = no SLO
+    deadline: Optional[float] = None
+    # cross-request prefix cache over device rows and the paged pool
+    prefix_cache: bool = True
+    prefix_cache_slots: int = 2
     # --- Algorithm-1 scheduler ------------------------------------------
     perf_model: str = "analytic"
     platform: str = "h100"
@@ -77,13 +94,17 @@ class ServerConfig:
                     rng, self.arrival_rate, self.num_requests)
                 for r, a in zip(reqs, offsets):
                     r.arrival_time = a
-            return reqs
-        reqs = workloads.generate(
-            self.workload, num_requests=self.num_requests, vocab=vocab,
-            arrival_rate=self.arrival_rate, seed=self.seed)
-        for r in reqs:
-            r.prompt = r.prompt[:prompt_cap]
-            r.max_new_tokens = min(r.max_new_tokens, output_cap)
+        else:
+            reqs = workloads.generate(
+                self.workload, num_requests=self.num_requests, vocab=vocab,
+                arrival_rate=self.arrival_rate, seed=self.seed)
+            for r in reqs:
+                r.prompt = r.prompt[:prompt_cap]
+                r.max_new_tokens = min(r.max_new_tokens, output_cap)
+        if self.deadline is not None:
+            for r in reqs:
+                if r.deadline is None:
+                    r.deadline = self.deadline
         return reqs
 
 
@@ -166,15 +187,20 @@ class InferenceServer:
 
     def submit(self, request: Union[Request, Sequence[int]],
                max_new_tokens: Optional[int] = None, *,
-               priority: int = 0) -> RequestHandle:
+               priority: int = 0,
+               deadline: Optional[float] = None) -> RequestHandle:
         """Submit a Request (or a raw token prompt); arrival is stamped
-        now unless the request already carries a wall-clock stamp."""
+        now unless the request already carries a wall-clock stamp.
+        ``deadline`` is a TTFT SLO in seconds from arrival (default:
+        ``ServerConfig.deadline``)."""
         if not isinstance(request, Request):
             request = Request(prompt=[int(t) for t in request],
                               max_new_tokens=(self.config.output_len
                                               if max_new_tokens is None
                                               else max_new_tokens),
-                              priority=priority)
+                              priority=priority,
+                              deadline=(deadline if deadline is not None
+                                        else self.config.deadline))
         if request.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {request.max_new_tokens} "

@@ -2,8 +2,8 @@
 
 The engine owns execution: the model steps on the card, the
 Asynchronous Overlap runtime (``OverlapController`` + ``HostExecutor``),
-KV movement to the host tier at admission, and the per-iteration
-dispatch of Algorithm 1's ``Decision``:
+K/V movement between the tiers, and the per-iteration dispatch of
+Algorithm 1's ``Decision``:
 
   * ``GPU_ONLY``       -- device-only decode (no host-designated rows);
   * ``ASYNC_OVERLAP``  -- deferred sync: the previous iteration's host job
@@ -11,35 +11,66 @@ dispatch of Algorithm 1's ``Decision``:
   * ``ASYM_PIPELINE``  -- host attention is *waited for* between two
     consecutive device steps, so every cycle advances the cohort.
 
-``RequestLifecycle`` decides which request is where; prefill is the
-bucketed whole-prompt path (``prefill_exec``).  Each iteration has one
-device->host sync, the logits readback in ``_commit_device``: tokens,
-masks and host-row scalars go up through pinned memory without waiting,
-and the host job's Q/K/V are copied down by the executor's worker.
+``RequestLifecycle`` decides which request is where; the engine
+executes its decisions:
+
+  * **chunked prefill** -- admissions claim staging rows and advance in
+    token-budgeted chunks; each iteration enqueues the decode step and
+    one chunk over every staging row (``decode_with_chunked_prefill``),
+    submitting the host job between the two so host attention overlaps
+    the chunk.  ``chunk_tokens=0`` keeps whole-prompt bucketed prefill.
+  * **prefix cache** -- retired prompts publish their K/V to device rows
+    or the paged pool; matching admissions resume at the suffix.
+  * **host->device migration** -- when a device slot frees and the
+    drain-time predicate says it pays, a host resident's paged K/V is
+    uploaded into the slot (an in-flight host prefill retargets by
+    bookkeeping: its K/V already lives in the staging row).
+  * **device->host preemption** -- an urgent admission demotes a strictly
+    lower-priority device resident: its K/V is swapped to the pool, or
+    dropped and replayed through the queue (recompute) when no host room
+    exists or the replay is priced cheaper.
+
+All moves copy values, so greedy tokens match a run without them (up
+to the bf16 device / fp32 host K/V of decode tokens, as in the
+reference).  Tokens, masks and host-row scalars go up through pinned
+memory without waiting; the host job's Q/K/V are copied down by the
+executor's worker.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import placement
 from repro_torch.core.overlap_engine import (Cohort, HostExecutor,
-                                             OverlapController, to_device)
+                                             OverlapController,
+                                             stack_row_kv_to_pool_layers,
+                                             to_device)
 from repro_torch.core.perf_model import OnlineCalibrator, resolve_perf_model
 from repro_torch.core.scheduler import (AdmissionController, ApexScheduler,
                                         Decision, StrategyKind)
-from repro_torch.models import (ModelParams, decode_step, init_decode_state,
-                                prefill_bucketed)
+from repro_torch.models import (ModelParams, decode_step,
+                                decode_with_chunked_prefill,
+                                init_decode_state, prefill_bucketed,
+                                prefill_chunk)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_cache import PagedKVPool, StackState
-from repro_torch.models.transformer import HostIO
-from repro_torch.serving.lifecycle import (EngineConfig, EngineStats,
-                                           RequestLifecycle, reject)
-from repro_torch.serving.prefill_exec import prefill_batched
+from repro_torch.models.transformer import HostIO, QKVOut
+from repro_torch.serving.lifecycle import (ChunkPlan, EngineConfig,
+                                           EngineStats, RequestLifecycle,
+                                           TierPlacer, reject, transition)
+from repro_torch.serving.prefill_exec import (finish_chunks, prefill_batched,
+                                              seed_prefix_hits)
+from repro_torch.serving.prefix_cache import PrefixCache, publish_retired
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.sampler import sample
+from repro_torch.serving.tiermove import (demote_slot_to_host_row,
+                                          upload_host_kv_to_slot,
+                                          zero_recurrent_rows)
 
 __all__ = ["Engine", "EngineConfig", "EngineStats", "resolve_device"]
 
@@ -83,15 +114,33 @@ class Engine:
             self.scheduler = ApexScheduler(
                 self._calibrator, host_min_ratio=self.e.host_min_ratio,
                 max_pipeline_sub_batch=self.e.max_pipeline_sub_batch)
+        # an injected scheduler without the chunk arguments still works:
+        # the engine then sizes the chunk budget itself
+        self._sched_chunk_aware = "chunk_tokens_max" in \
+            inspect.signature(self.scheduler.schedule).parameters
         # KV budgets from slot and pool capacity
         self.admission = AdmissionController(
             device_kv_budget_tokens=self.e.device_slots * self.e.cache_len,
             host_kv_budget_tokens=(self.e.host_pool_pages * self.e.page_size
                                    if self.e.enable_offload else 0))
-        self.lc = RequestLifecycle(self.e, stats=self.stats,
-                                   admission=self.admission)
+        placer = TierPlacer(admission=self.admission,
+                            perf_model=self._calibrator,
+                            iters_per_host_token=cfg.num_attn_layers + 1)
+        self.lc = RequestLifecycle(self.e, stats=self.stats, placer=placer)
         self._prefill_shapes: set = set()
         self._idle_io: Optional[HostIO] = None
+        self._chunked = self.e.chunk_tokens > 0
+        self.staging_state: Optional[StackState] = None
+        if self._chunked:
+            # one staging row per admissible request: prompts prefill
+            # there chunk by chunk, then splice into their device slot or
+            # (host tier) finish streaming to the paged pool
+            n_staging = self.e.device_slots + (
+                self.e.host_slots if self.e.enable_offload else 0)
+            self.staging_state = init_decode_state(
+                cfg, device_batch=n_staging, cache_len=self.e.cache_len,
+                device=self.device)
+            self.lc.staging = [None] * n_staging
         self._overlap: Optional[OverlapController] = None
         self.executor: Optional[HostExecutor] = None
         if self.e.enable_offload:
@@ -107,6 +156,29 @@ class Engine:
             self._pending_host_pred = 0.0   # predicted time of pending job
             self._host_compute_seen = 0.0   # executor compute_time watermark
             self._job_ids = iter(range(1, 1 << 30))
+        # cross-request prefix cache; rides the chunked path (a hit
+        # resumes a prompt mid-way)
+        self.prefix: Optional[PrefixCache] = None
+        self.prefix_state: Optional[StackState] = None
+        if self.e.prefix_cache and self._chunked:
+            n_rows = max(self.e.prefix_cache_slots, 0)
+            self.prefix = PrefixCache(device_rows=n_rows,
+                                      hybrid=cfg.has_recurrent)
+            if n_rows > 0:
+                # a state of its own: decode writes every row of the
+                # decode state each step
+                self.prefix_state = init_decode_state(
+                    cfg, device_batch=n_rows, cache_len=self.e.cache_len,
+                    device=self.device)
+            placer.cached_prefix_probe = self.prefix.match_len
+            if self.executor is not None:
+                self.executor.pool.on_evict = self._on_pool_evict
+
+    def _on_pool_evict(self, owner: int) -> None:
+        """The pool's LRU reclaimed a cached prefix chain: the first rung
+        of the degradation ladder."""
+        self.prefix.forget_owner(owner, self.stats)
+        self.stats.note_pressure("prefix_evict")
 
     # --- lifecycle views ---------------------------------------------------
     @property
@@ -165,13 +237,157 @@ class Engine:
         self.state.lengths[slot] = plen
 
     def _admit(self) -> List[Request]:
+        """Admit queued requests through the lifecycle (budgets, slots,
+        deadline backpressure and preemption in one placement decision),
+        then stage (chunked) or prefill them.  Returns the requests
+        placed this iteration."""
+        demote = None
+        if self.e.preemption and self.executor is not None:
+            demote = self._preempt_to_host
         placements = self.lc.admit(
             pool=self.executor.pool if self.executor is not None else None,
-            prompt_reject_reason=self.prompt_reject_reason)
-        if placements:
+            demote=demote, prompt_reject_reason=self.prompt_reject_reason)
+        if not placements:
+            return []
+        if self._chunked:
+            rows = self.lc.stage(placements)
+            if self.cfg.has_recurrent:
+                # a recycled row still holds its last occupant's carry,
+                # which the first chunk would resume
+                zero_recurrent_rows(self.cfg, self.staging_state, rows)
+            if self.prefix is not None:
+                seed_prefix_hits(self, placements, rows)
+        else:
             prefill_batched(self, placements)
             self.stats.prefill_compilations = len(self._prefill_shapes)
         return [p[0] for p in placements]
+
+    # --- tier moves (the placer decides; the engine moves the K/V) --------
+    def _migrate_host_to_device(self, req: Request, slot: int) -> None:
+        """Promote a host resident into a freed device slot: its paged
+        K/V uploaded into the slot cache, its recurrent rows (hybrids)
+        spliced from the host row.  Runs only at cohort token boundaries
+        (or for requests outside the cohort), so no host job touches its
+        chains meanwhile."""
+        transition(req, Phase.MIGRATING)
+        n = self.executor.pool.lengths[req.request_id]
+        upload_host_kv_to_slot(
+            self.cfg, self.state, self.executor.gather_request(
+                req.request_id), slot, n,
+            host_row=self.e.device_slots + req.slot)
+        self.executor.free(req.request_id)
+        self.lc.note_migrated(req, slot)
+
+    def _retarget_staging(self, req: Request, slot: int) -> None:
+        """Mid-prefill host->device retarget: the staging row already
+        holds the K/V on the device, so the move is bookkeeping -- free
+        the pool chains of the chunks streamed so far and flip the
+        entry's tier; completion then splices into the device slot."""
+        ent = next(self.lc.staging[row] for row in self.lc.staging_order
+                   if self.lc.staging[row].req is req)
+        transition(req, Phase.MIGRATING)
+        self.executor.free(req.request_id)
+        self.lc.note_migrated(req, slot, to_prefill=True)
+        ent.tier = "device"
+        ent.slot = slot
+
+    def _rebalance(self) -> None:
+        """Host->device rebalancing: promote host residents into free
+        device slots while the shared drain-time predicate says each
+        move pays.  Cohort members move only at token boundaries."""
+        if not (self.e.tier_rebalance and self.executor is not None):
+            return
+        lc = self.lc
+        while True:
+            slot = lc.free_slot()
+            if slot is None or lc.queue:
+                return
+            boundary = self._cohort is None or self._cohort.attn_ptr == -1
+            mid_journey = (set(self._cohort.slot_rids)
+                           if self._cohort is not None and not boundary
+                           else set())
+            candidates = [r for r in lc.decoding_hosts()
+                          if r.request_id not in mid_journey]
+            if self._chunked:
+                candidates += [lc.staging[row].req
+                               for row in lc.staging_order
+                               if lc.staging[row].tier == "host"]
+            cand = lc.placer.rebalance_candidate(
+                candidates, waiting=len(lc.queue), device_slot_free=True,
+                device_batch=sum(r is not None for r in lc.slots))
+            if cand is None:
+                return
+            if cand.phase is Phase.PREFILL:
+                self._retarget_staging(cand, slot)
+            else:
+                self._migrate_host_to_device(cand, slot)
+
+    def _preempt_to_host(self, urgent: Request) -> Optional[int]:
+        """Demote the placer's lowest-priority device resident to the host
+        tier and return its freed slot; None when preemption cannot help.
+        When the swap cannot proceed (no host slot or pool room, a lost
+        allocation race) or a replay is priced below the K/V move, the
+        victim is recompute-preempted instead (if ``recompute_fallback``).
+        The swap reads the slot's K/V into host memory before returning,
+        so the urgent request may overwrite the slot right after."""
+        lc = self.lc
+        hslot = lc.free_host_slot()
+        residents = [r for r in lc.slots
+                     if r is not None and not r.done
+                     and r.phase is Phase.DECODE_DEVICE]
+        victim = lc.placer.preemption_victim(
+            residents, urgent=urgent, host_slot_free=hslot is not None,
+            pool_ok=self.executor.pool.can_admit)
+        if victim is None:
+            return self._recompute_preempt(urgent, residents)
+        if self.e.recompute_fallback and lc.placer.prefer_recompute(victim):
+            return self._recompute_victim(victim)
+        slot = victim.slot
+        n = victim.total_len - 1           # cached positions in the slot
+        try:
+            self.executor.pool.allocate(victim.request_id, n)
+        except MemoryError:
+            # can_admit is advisory: recompute rather than strand the
+            # urgent request behind a full pool
+            return self._recompute_victim(victim)
+        transition(victim, Phase.PREEMPTED)
+        self.executor.migrate_prompt(
+            victim.request_id,
+            stack_row_kv_to_pool_layers(self.cfg, self.state, slot, n))
+        demote_slot_to_host_row(self.cfg, self.state, slot,
+                                host_row=self.e.device_slots + hslot)
+        lc.note_preempted(victim, hslot)
+        # the cohort picks the demoted request up at its next boundary
+        return slot
+
+    def _recompute_preempt(self, urgent: Request,
+                           residents: List[Request]) -> Optional[int]:
+        """No swap capacity: recompute-preempt the structural victim
+        (lowest priority, smallest K/V) if the escape hatch is on and a
+        strictly lower-priority resident exists."""
+        if not self.e.recompute_fallback:
+            return None
+        victim = placement.pick_preemption_victim(
+            residents, urgent_priority=urgent.priority)
+        if victim is None:
+            return None
+        return self._recompute_victim(victim)
+
+    def _recompute_victim(self, victim: Request) -> int:
+        """Drop a device resident's K/V and requeue it on the RECOMPUTE
+        edge; returns its freed slot (length hygiene hides the stale
+        rows, and the replay prefills fresh ones)."""
+        slot = victim.slot
+        self.lc.note_recomputed(victim)
+        return slot
+
+    def refresh_prefix_gauges(self) -> None:
+        """Resident-byte gauges of the prefix cache, per tier, kept
+        current on every cache mutation."""
+        if self.prefix is None:
+            return
+        self.stats.prefix_device_bytes = self.prefix.device_bytes(self)
+        self.stats.prefix_host_bytes = self.prefix.host_bytes(self)
 
     # --- cohort management ------------------------------------------------
     def _ensure_cohort(self) -> Optional[Cohort]:
@@ -196,29 +412,59 @@ class Engine:
     # --- Algorithm 1 ---------------------------------------------------------
     def _schedule(self, admitted: List[Request],
                   active_rows: List[int]) -> Optional[Decision]:
-        prefill_q, decode_gpu, decode_cpu = self.lc.schedule_snapshots(
-            admitted, active_rows)
+        prefill_q, decode_gpu, decode_cpu, backlog = \
+            self.lc.schedule_snapshots(admitted, active_rows,
+                                       chunked=self._chunked)
+        if self._chunked:
+            # a chunk-aware scheduler grants the budget (the mixed
+            # branch's prefill share) itself; for another, price the
+            # budget step() will grant
+            prefill_tokens = 0 if self._sched_chunk_aware else (
+                min(backlog, self._fallback_chunk_budget(active_rows))
+                if prefill_q else 0)
+        else:
+            prefill_tokens = sum(r.prompt_len for r in admitted)
         if not (prefill_q or decode_gpu or decode_cpu):
             return None                      # idle iteration
         contexts = [r.total_len for r in decode_gpu + decode_cpu]
         mean_context = float(np.mean(contexts)) if contexts else 1.0
+        kw = {}
+        if self._sched_chunk_aware:
+            kw = dict(chunk_backlog_tokens=backlog,
+                      chunk_tokens_max=(self.e.chunk_tokens
+                                        if self._chunked else 0))
         decision = self.scheduler.schedule(
             prefill_q, decode_gpu, decode_cpu,
             mean_context=max(mean_context, 1.0),
-            prefill_tokens=sum(r.prompt_len for r in admitted))
+            prefill_tokens=prefill_tokens, **kw)
         self.stats.record_decision(decision)
         return decision
+
+    def _fallback_chunk_budget(self, active_rows: List[int]) -> int:
+        """Chunk budget without a chunk-aware scheduler: the whole backlog
+        while nothing decodes, the ``chunk_tokens`` cap otherwise."""
+        if not active_rows and not self.lc.decoding_hosts():
+            return self.lc.staging_backlog()
+        return self.e.chunk_tokens
 
     # --- one engine iteration ------------------------------------------------
     def step(self) -> None:
         t0 = time.perf_counter()
         admitted = self._admit()
+        self._rebalance()
         # rows whose request already reached max_new_tokens straight out
-        # of prefill do not ride this iteration's decode batch
+        # of prefill, and chunked admissions still mid-prefill, do not
+        # ride this iteration's decode batch
         active_rows = [i for i, r in enumerate(self.lc.slots)
                        if r is not None and not r.done
                        and r.phase is Phase.DECODE_DEVICE]
         decision = self._schedule(admitted, active_rows)
+        plan = None
+        if self._chunked and self.lc.staging_order:
+            budget = (decision.chunk_tokens
+                      if decision is not None and self._sched_chunk_aware
+                      else self._fallback_chunk_budget(active_rows))
+            plan = self.lc.plan_chunks(budget)
         tokens = np.zeros((self.e.device_slots,), np.int64)
         for i in active_rows:
             tokens[i] = self.lc.slots[i].output[-1]
@@ -230,16 +476,21 @@ class Engine:
         self.state = StackState(per_entry=self.state.per_entry,
                                 lengths=lengths)
         cohort = self._ensure_cohort() if self.e.enable_offload else None
+        tokens_d = to_device(tokens, self.device)
         if cohort is not None:
             wait = (decision is not None
                     and decision.strategy == StrategyKind.ASYM_PIPELINE)
-            self._step_overlap(to_device(tokens, self.device), cohort,
-                               active_rows, wait=wait)
-        elif active_rows:
-            logits, self.state, _, _ = decode_step(
-                self.params, self.cfg, to_device(tokens, self.device),
-                self.state, self._idle_host_io())
-            self._commit_device(logits, active_rows)
+            self._step_overlap(tokens_d, cohort, active_rows, wait=wait,
+                               plan=plan)
+        elif active_rows or plan is not None:
+            self._step_device_only(tokens_d, active_rows, plan)
+        if plan is not None:
+            self.stats.prefill_chunks += len(plan.rows)
+            self.stats.chunked_prefill_tokens += sum(plan.lens)
+            if active_rows or cohort is not None:
+                self.stats.chunk_co_run_iterations += 1
+            self._prefill_shapes.add(plan.tokens.shape)
+            self.stats.prefill_compilations = len(self._prefill_shapes)
         self.stats.iterations += 1
         self.lc.note_iteration()
         dt = time.perf_counter() - t0
@@ -254,7 +505,34 @@ class Engine:
                 self.stats.step_error_ewma = self._calibrator.step_error_ewma
         self.lc.retire(free_host=(self.executor.free
                                   if self.executor is not None
-                                  else lambda rid: None))
+                                  else lambda rid: None),
+                       publish=((lambda r: publish_retired(self, r))
+                                if self.prefix is not None else None))
+
+    def _chunk_inputs(self, plan: ChunkPlan):
+        return (to_device(plan.tokens, self.device),
+                to_device(plan.clens, self.device))
+
+    def _step_device_only(self, tokens: torch.Tensor, active_rows: List[int],
+                          plan: Optional[ChunkPlan]) -> None:
+        if plan is None:
+            logits, self.state, _, _ = decode_step(
+                self.params, self.cfg, tokens, self.state,
+                self._idle_host_io())
+            self._commit_device(logits, active_rows)
+            return
+        ctoks, clens = self._chunk_inputs(plan)
+        if not active_rows:
+            clogits, self.staging_state = prefill_chunk(
+                self.params, self.cfg, ctoks, clens, self.staging_state)
+            finish_chunks(self, plan, clogits)
+            return
+        logits, self.state, _, _, clogits, self.staging_state = \
+            decode_with_chunked_prefill(
+                self.params, self.cfg, tokens, self.state,
+                self._idle_host_io(), ctoks, clens, self.staging_state)
+        self._commit_device(logits, active_rows)
+        finish_chunks(self, plan, clogits)
 
     def _idle_host_io(self) -> Optional[HostIO]:
         """The step's ``HostIO`` when no cohort is live: None, except for a
@@ -295,30 +573,43 @@ class Engine:
         return toks
 
     def _step_overlap(self, tokens: torch.Tensor, cohort: Cohort,
-                      active_rows: List[int], *, wait: bool = False) -> None:
+                      active_rows: List[int], *, wait: bool = False,
+                      plan: Optional[ChunkPlan] = None) -> None:
         """One hybrid iteration (paper §3.3).
 
         ``wait=False`` -- Asynchronous Overlap: poll the pending host
         job; if late, host rows ride along untouched.  ``wait=True`` --
         Asymmetric Pipelining: block until the host result is ready.
-        The host job is submitted with the device Q/K/V straight from the
-        step plus a CUDA event recorded after it; the worker copies them.
+        The host job is submitted with the device Q/K/V of the decode
+        step plus a CUDA event recorded right after it, before the
+        iteration's prefill chunk is enqueued: the worker's copy and the
+        host attention overlap the chunk's compute.
         """
         ctl = self._overlap
         valid = cohort.valid_slots
         bg = self.e.device_slots
         if self._pending_job is not None:
+            t_wait = time.perf_counter()
             if wait:
                 out = self.executor.result(self._pending_job, timeout=120.0)
             else:
                 out = self.executor.poll(self._pending_job)
+            self.stats.host_wait_time += time.perf_counter() - t_wait
             if out is None:
                 host_idle = ctl.host_io(cohort)._replace(
                     consume_layer=-1, emit_layer=-1, window_start=0,
                     window_end=0)
-                logits, self.state, _, _ = decode_step(
-                    self.params, self.cfg, tokens, self.state, host_idle)
+                if plan is None:
+                    logits, self.state, _, _ = decode_step(
+                        self.params, self.cfg, tokens, self.state, host_idle)
+                    self._commit_device(logits, active_rows)
+                    return
+                logits, self.state, _, _, clogits, self.staging_state = \
+                    decode_with_chunked_prefill(
+                        self.params, self.cfg, tokens, self.state, host_idle,
+                        *self._chunk_inputs(plan), self.staging_state)
                 self._commit_device(logits, active_rows)
+                finish_chunks(self, plan, clogits)
                 return
             buf = np.zeros(tuple(cohort.attn_in.shape), np.float32)
             buf[np.asarray(valid, np.int64)] = out
@@ -336,15 +627,16 @@ class Engine:
         io = ctl.host_io(cohort)
         emit_layer = ctl.emit_layer(cohort)
         completes = ctl.completes_token(cohort)
-        logits, self.state, qkv, x_final = decode_step(
-            self.params, self.cfg, tokens, self.state, io)
-        if emit_layer >= 0:
+
+        def submit_host_job(qkv: Optional[QKVOut]) -> None:
+            if emit_layer < 0:
+                return
             ready = None
             if self.device.type == "cuda":
                 ready = torch.cuda.Event()
                 ready.record()
-            # submit BEFORE the logits sync: the worker copies Q/K/V and
-            # computes while the engine waits on the device logits
+            # submitted before the chunk and before the logits sync: the
+            # worker copies Q/K/V and computes while the card runs them
             job = next(self._job_ids)
             idx = np.asarray(valid, np.int64)
             positions = cohort.positions[idx]
@@ -355,6 +647,18 @@ class Engine:
             if self._calibrator is not None:
                 self._pending_host_pred = self._calibrator.t_catt(
                     len(valid), float(np.mean(positions + 1)), layers=1)
+
+        clogits = None
+        if plan is None:
+            logits, self.state, qkv, x_final = decode_step(
+                self.params, self.cfg, tokens, self.state, io)
+            submit_host_job(qkv)
+        else:
+            logits, self.state, qkv, x_final, clogits, self.staging_state = \
+                decode_with_chunked_prefill(
+                    self.params, self.cfg, tokens, self.state, io,
+                    *self._chunk_inputs(plan), self.staging_state,
+                    after_decode=submit_host_job)
         toks = self._commit_device(logits, active_rows)
         cohort.x_carry = x_final[bg:]
         if completes:
@@ -374,6 +678,8 @@ class Engine:
             self.lc.host_requests[rid].layer_progress = \
                 ctl.layer_progress(cohort)
         ctl.advance(cohort)
+        if plan is not None:
+            finish_chunks(self, plan, clogits)
 
     # --- driver -------------------------------------------------------------
     def run(self, requests: List[Request], *, max_iterations: int = 100000

@@ -24,6 +24,16 @@ class Phase(str, enum.Enum):
     PREFILL = "prefill"
     DECODE_DEVICE = "decode_device"
     DECODE_HOST = "decode_host"
+    # transient tier-move states (``lifecycle.LEGAL_TRANSITIONS`` owns the
+    # edges): MIGRATING = host->device promotion in flight, PREEMPTED =
+    # device->host demotion in flight
+    MIGRATING = "migrating"
+    PREEMPTED = "preempted"
+    # recompute-from-scratch preemption: the victim's KV was dropped and
+    # it waits in the admission queue; it re-prefills its prompt and
+    # regenerates its emitted tokens bit-identically (streams forward
+    # only tokens past their high-water mark)
+    RECOMPUTE = "recompute"
     FINISHED = "finished"
 
 
@@ -48,10 +58,19 @@ class Request:
     error: Optional[str] = None
     # --- admission order --------------------------------------------
     # TTFT deadline in seconds relative to arrival (None = none): orders
-    # the admission queue earliest-due first within a priority class
+    # the admission queue earliest-due first within a priority class;
+    # admission rejects a request whose deadline is already impossible,
+    # and a first token landing after it counts as a deadline miss
     deadline: Optional[float] = None
     # admission priority (higher = more urgent): orders the queue first
+    # and, with preemption on, lets the request demote a strictly
+    # lower-priority device resident to the host tier
     priority: int = 0
+    # recurrent state (hybrids) at prompt end, snapshotted when prefill
+    # graduates, before decode advances it: what the prefix cache
+    # publishes beside the prompt's K/V
+    prefix_carry: Optional[list] = dataclasses.field(default=None,
+                                                     repr=False)
 
     @property
     def failed(self) -> bool:

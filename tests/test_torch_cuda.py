@@ -226,3 +226,69 @@ def test_decode_workspace_reused_across_calls(gen):
                                atol=1e-5, rtol=1e-5)
     assert torch.equal(again, first) and torch.equal(third, first)
     torch.testing.assert_close(small, first[:1], atol=1e-6, rtol=1e-6)
+
+
+def test_chunked_staging_kv_split_invariant_and_prefix_row_is_a_copy(gen):
+    """At the engine's fixed chunk geometry (3 staging rows x 64 tokens) a
+    prompt's staging K/V and last logits are bitwise the same under two
+    budget splits, while the other rows carry other prompts; and a prefix
+    row published from the staging row keeps its bits after the staging
+    row is overwritten by the next prompt."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_decode_state, init_params, \
+        prefill_chunk
+    from repro_torch.serving.tiermove import copy_state_row
+    cfg = get_config("llama3.1-8b").reduced(layers=2, d_model=256,
+                                            vocab=512)
+    cfg = dataclasses.replace(cfg, name="llama-chunk-card")
+    params = init_params(cfg, seed=0, device="cuda")
+    rows, width, cache, plen = 3, 64, 256, 150
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (rows, plen))
+
+    def run(grants):
+        """Advance every row by ``grants`` tokens per call (row 1's split
+        is the list given; the others take 64 whenever they can)."""
+        st = init_decode_state(cfg, device_batch=rows, cache_len=cache,
+                               device="cuda")
+        done = [0] * rows
+        logits = None
+        for g in grants:
+            toks = np.zeros((rows, width), np.int64)
+            lens = np.zeros((rows,), np.int32)
+            for r in range(rows):
+                c = g if r == 1 else min(width, plen - done[r])
+                toks[r, :c] = prompts[r, done[r]:done[r] + c]
+                lens[r] = c
+                done[r] += c
+            logits, st = prefill_chunk(
+                params, cfg, torch.from_numpy(toks).cuda(),
+                torch.from_numpy(lens).cuda(), st)
+            if done[1] == plen:
+                return logits[1].clone(), st
+        raise AssertionError("split does not cover the prompt")
+
+    la, sa = run([64, 64, 22])
+    lb, sb = run([40, 64, 46])
+    assert sa.lengths[1].item() == sb.lengths[1].item() == plen
+    assert torch.equal(la, lb)
+    for ea, eb in zip(sa.per_entry, sb.per_entry):
+        assert torch.equal(ea.k[:, 1, :plen], eb.k[:, 1, :plen])
+        assert torch.equal(ea.v[:, 1, :plen], eb.v[:, 1, :plen])
+    prefix = init_decode_state(cfg, device_batch=1, cache_len=cache,
+                               device="cuda")
+    copy_state_row(cfg, prefix, sa, 1, 0, plen)
+    kept = [(e.k[:, 0].clone(), e.v[:, 0].clone()) for e in prefix.per_entry]
+    sa.lengths[1] = 0                        # the row is recycled
+    other = (prompts[:, :width] + 1) % cfg.vocab_size
+    prefill_chunk(params, cfg, torch.from_numpy(other).cuda(),
+                  torch.full((rows,), width, dtype=torch.int32,
+                             device="cuda"), sa)
+    assert not torch.equal(sa.per_entry[0].k[:, 1, :width],
+                           kept[0][0][:, :width])
+    for e, (k, v) in zip(prefix.per_entry, kept):
+        assert torch.equal(e.k[:, 0], k) and torch.equal(e.v[:, 0], v)
+    assert prefix.lengths[0].item() == plen
