@@ -16,24 +16,36 @@ Phases (any failure exits non-zero):
      bound -- at the main-path shapes, and also at a long decode (B 8,
      S 8192), a long causal prefill (T 4096) and a long scan (B 1,
      T 4096);
-  3. exactness: llama3.1-8b and the dense-FFN Jamba hybrid, each reduced
+  3. profile: ``OfflineProfiler`` on llama3.1-8b at published width over
+     the startup grid -- every table point finite and positive, both
+     attention kernels launched, the profile saved under chiprun_out/ and
+     reloaded through ``file:`` unchanged, and its predictions printed
+     beside the analytic h100 model's at the chat operating points;
+  4. exactness: llama3.1-8b and the dense-FFN Jamba hybrid, each reduced
      to d_model 256 in fp32 -- greedy tokens from raw prefill+decode,
      engine device rows and host-offloaded rows must be identical; and
      serving-chunked's chat traffic must give the same streams with and
      without the prefix cache, rebalancing and preemption;
-  4. serving: InferenceServer on llama3.1-8b at its published width (bf16,
+  5. serving: InferenceServer on llama3.1-8b at its published width (bf16,
      random weights from a seed), 8 requests over 4 device + 4 host slots,
      whole-prompt prefill, no prefix cache or tier moves;
-  5. serving-hybrid: the same traffic on Jamba-1.5-Large with dense FFNs
+  6. serving-hybrid: the same traffic on Jamba-1.5-Large with dense FFNs
      at its published width, depth cut to 2 periods (16 layers);
-  6. serving-chunked: the reference's default configuration (chunked
+  7. faults: the reference's fault soak on llama3.1-8b at published width
+     cut to 8 layers -- a fault-free control (no host fallback), the plan
+     (a host worker's death and stall, a failed pool allocation, a
+     latency spike), consecutive fallbacks tripping the breaker, a
+     blocked swap recomputed, cancels of a queued request, a device and a
+     host resident: streams held to the control's, the pool whole;
+  8. serving-chunked: the reference's default configuration (chunked
      prefill beside decode, the prefix cache on both tiers, migration,
      preemption) on multi-turn chat, llama3.1-8b and the 8-layer Jamba
      at published width: every mechanism must fire, the streams must
      equal a run with the prefix cache and tier moves off (a stream may
      part only at a top-2 tie of two logit ULPs), and the pool must end
-     whole;
-  7. cli: ``python -m repro_torch.launch.serve`` with its defaults.
+     whole; llama runs the traffic once more on the measured profile;
+  9. cli: ``python -m repro_torch.launch.serve`` with its defaults (the
+     measured perf model), and with ``--fault-plan host_error@2``.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
@@ -1248,14 +1260,17 @@ class _Watch:
     the way): a NaN flag over every logit row a token is taken from, and
     each token's top-2 logit gap and top logit, keyed by (request id,
     token index) -- device rows at every commit, host rows when their
-    token completes, first tokens at graduation."""
+    token completes, first tokens at graduation.  Also counts the chunk
+    budgets Algorithm 1 granted (budget -> iterations)."""
 
     def __init__(self, device: str):
+        import collections
         import torch
         self.nan = torch.zeros((), dtype=torch.bool, device=device)
         self.keys, self.tops = [], []
         self.last = None
         self.dtype = None
+        self.budgets = collections.Counter()
 
     def rows(self, logits, rows, keys):
         import torch
@@ -1282,6 +1297,13 @@ class _Watch:
         commit = engine.Engine._commit_device
         overlap = engine.Engine._step_overlap
         finish = engine.finish_chunks
+        schedule = engine.Engine._schedule
+
+        def schedule_watched(eng, admitted, rows):
+            decision = schedule(eng, admitted, rows)
+            if decision is not None and decision.chunk_tokens:
+                watch.budgets[decision.chunk_tokens] += 1
+            return decision
 
         def commit_watched(eng, logits, rows):
             watch.last = logits
@@ -1312,16 +1334,17 @@ class _Watch:
                 for row in done])
             return finish(eng, plan, clogits)
 
-        self._saved = (commit, overlap, finish)
+        self._saved = (commit, overlap, finish, schedule)
         engine.Engine._commit_device = commit_watched
         engine.Engine._step_overlap = overlap_watched
         engine.finish_chunks = finish_watched
+        engine.Engine._schedule = schedule_watched
         return self
 
     def __exit__(self, *exc):
         from repro_torch.serving import engine
         (engine.Engine._commit_device, engine.Engine._step_overlap,
-         engine.finish_chunks) = self._saved
+         engine.finish_chunks, engine.Engine._schedule) = self._saved
 
 
 def logit_ulp(dtype, x: float) -> float:
@@ -1546,14 +1569,57 @@ def _chat_identity(cfg, params, device: str, label: str,
             + "".join(f"; parted: {f}" for f in other))
     return dict(stats=stats, wall=wall, outs=on, gap=gap, flips=flips,
                 off_stats=off_stats, off_wall=off_wall, launches=launches,
-                peak=peak)
+                peak=peak, off=off, off_m=off_m, budgets=watch.budgets)
 
 
-def _chunked_published(cfg, trace_iters: int) -> dict:
+def _budgets_text(budgets) -> str:
+    return ", ".join(f"{b}: {n}" for b, n in sorted(budgets.items()))
+
+
+def _measured_chat(cfg, params, res: dict, profile) -> None:
+    """The chat traffic once more with Algorithm 1 on the measured profile
+    (``perf_model="measured"``, cached at ``profile`` by the profile
+    phase, else profiled at startup): its numbers beside the analytic
+    run's, and its streams held to the tie-aware bar against the
+    features-off run."""
+    on, st, wall, (watch, on_m), _, _ = chat_run(cfg, params, chat_config(
+        cfg, "cuda", perf_model="measured", profile_cache=profile))
+    if bool(watch.nan):
+        fail("measured chat run: a logit was NaN")
+    same, flips, other = compare_streams(on, res["off"], on_m, res["off_m"],
+                                         watch.dtype)
+    if other:
+        fail("measured chat run: streams part by more than two logit ULPs "
+             "from the features-off run: " + "; ".join(other))
+    n_tok = sum(len(o) for o in on.values())
+    for label, s, w, budgets in (
+            ("analytic h100 (the defaults run)", res["stats"], res["wall"],
+             res["budgets"]),
+            ("measured profile", st, wall, watch.budgets)):
+        log(f"  {label}: {s.iterations} iterations in {w:.3f} s "
+            f"({s.iterations / w:.2f}/s), {n_tok / w:.2f} output tokens/s; "
+            f"TTFT p50 {s.ttft_p50 * 1e3:.1f} ms, p95 "
+            f"{s.ttft_p95 * 1e3:.1f} ms; ITL p50 {s.itl_p50 * 1e3:.1f} ms; "
+            f"chunk budgets (tokens: iterations) {{{_budgets_text(budgets)}}}"
+            f"; strategies {s.strategy_counts}; predicted step time "
+            f"{s.predicted_time:.3f} s against {s.observed_time:.3f} s "
+            f"observed (step error EWMA {s.step_error_ewma:.3f}); "
+            f"host fallbacks {s.host_fallbacks} [{CARD}]")
+    if st.host_fallbacks:
+        fail(f"measured chat run: {st.host_fallbacks} host fallbacks on a "
+             "healthy card")
+    log(f"  measured run: {same} of {len(on)} streams identical to the "
+        "features-off run" + ("" if not flips else "; parted at a tie: "
+                              + "; ".join(flips)))
+
+
+def _chunked_published(cfg, trace_iters: int, profile=None,
+                       measured: bool = False) -> dict:
     """The chat traffic on ``cfg`` at published width (random bf16 weights,
     seed 0): identity against the features-off run, the end-to-end
     numbers of the measured (defaults) run, a traced window, and each
-    kernel's launches over the measured run."""
+    kernel's launches over the measured run.  ``measured`` adds a run on
+    the measured perf model (``_measured_chat``)."""
     import torch
     from repro_torch.models import init_params
     from repro_torch.models.config import BlockKind
@@ -1600,6 +1666,11 @@ def _chunked_published(cfg, trace_iters: int) -> dict:
         if launches[name] < n:
             fail(f"{name} launched {launches[name]} times in the chunked "
                  f"run; it needs at least {n}")
+    if st.host_fallbacks or ost.host_fallbacks:
+        fail(f"host fallbacks on a healthy card: {st.host_fallbacks} / "
+             f"{ost.host_fallbacks}")
+    if measured:
+        _measured_chat(cfg, params, res, profile)
     _, _, _, _, _, traced = chat_run(cfg, params, chat_config(cfg, "cuda"),
                                      trace_iters=trace_iters)
     prof, twall = traced
@@ -1625,47 +1696,342 @@ def _chunked_published(cfg, trace_iters: int) -> dict:
     return launches
 
 
-def phase_serving_chunked() -> dict:
+def phase_serving_chunked(profile=None) -> dict:
     """The reference's default serving configuration on llama3.1-8b (32
     layers) and the dense-FFN Jamba at published width, cut to one period
     (8 layers: 7 Mamba, attention at 3) to save run time: llama's
     features-off run alone takes ~1500 iterations, its host-tier turns
-    decoding at 33 iterations per token."""
+    decoding at 33 iterations per token.  llama also runs the traffic on
+    the measured profile (``profile``, the profile phase's cache)."""
     from repro_torch.configs import get_config
     log("  -- llama3.1-8b")
-    counts = _chunked_published(get_config("llama3.1-8b"), trace_iters=12)
+    counts = _chunked_published(get_config("llama3.1-8b"), trace_iters=12,
+                                profile=profile, measured=True)
     log("  -- Jamba-1.5-Large, dense FFN, 8 layers")
     hyb = _chunked_published(hybrid_config(num_layers=8), trace_iters=12)
     return {name: counts[name] + hyb[name] for name in counts}
 
 
 # ---------------------------------------------------------------------------
-# phase 7
+# profile
 # ---------------------------------------------------------------------------
 
 
-def phase_cli() -> None:
+def phase_profile() -> tuple:
+    """``OfflineProfiler`` on llama3.1-8b at published width (bf16, random
+    weights from seed 0) over ``STARTUP_PROFILE_GRID``: every table point
+    finite and positive, both attention kernels launched, the profile
+    saved under chiprun_out/ and reloaded through ``file:`` unchanged, and
+    the table model's predictions beside the analytic h100 model's at the
+    chat traffic's operating points.  Returns (profile path, launches)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.perf_model import (STARTUP_PROFILE_GRID,
+                                             analytic_model,
+                                             resolve_perf_model)
+    from repro_torch.core.profiler import OfflineProfiler
+    cfg = get_config("llama3.1-8b")
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model = OfflineProfiler(cfg, seed=0, device="cuda").run(
+        **STARTUP_PROFILE_GRID)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"  {model.fingerprint}: profiled in {wall:.2f} s over "
+        f"{dict(STARTUP_PROFILE_GRID)}; launches {launches} [{CARD}]")
+    for op, (xs, ys) in model.tables.items():
+        log(f"    {op:8s} " + "  ".join(f"{x:g}: {1e3 * y:.4f} ms"
+                                        for x, y in zip(xs, ys)))
+        if not all(math.isfinite(y) and y > 0 for y in ys):
+            fail(f"profile table {op} has a point that is not finite and "
+                 "positive")
+    for name in ("decode_attention", "prefill_attention"):
+        if launches[name] <= 0:
+            fail(f"the profile never launched {name}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / f"profile-{cfg.name}.json"
+    model.save(str(path))
+    loaded = resolve_perf_model(f"file:{path}", cfg, device="cuda")
+    analytic = analytic_model("h100", cfg)
+    for b in (2, 4, 6):
+        for ctx in (128.0, 256.0, 512.0):
+            for pre in (0, 64):
+                if loaded.timings(b, ctx, pre) != model.timings(b, ctx, pre):
+                    fail("the profile reloaded through file: predicts "
+                         "other timings")
+    log("  table (measured) against analytic h100, per iteration: "
+        "t_glinear, t_gatt (all layers), t_catt (one layer, the cohort of "
+        "b rows), n_g, n_c (KV positions/s); the 64-token chunk's "
+        "t_glinear_pref, t_gatt_pref")
+    for b in (2, 4, 6):
+        for ctx in (128.0, 256.0, 512.0):
+            cells = []
+            for m in (model, analytic):
+                t = m.timings(b, ctx, 64)
+                cells.append(
+                    f"{1e3 * t.t_glinear:.3f} / {1e3 * t.t_gatt:.4f} / "
+                    f"{1e3 * m.t_catt(b, ctx, layers=1):.4f} ms, "
+                    f"n_g {t.n_g:.3e}, n_c {t.n_c:.3e}; chunk "
+                    f"{1e3 * t.t_glinear_pref:.3f} / "
+                    f"{1e3 * t.t_gatt_pref:.3f} ms")
+            log(f"    b {b} ctx {ctx:g}: table {cells[0]} | analytic "
+                f"{cells[1]}")
+    del model, loaded
+    torch.cuda.empty_cache()
+    return str(path), launches
+
+
+# ---------------------------------------------------------------------------
+# faults
+# ---------------------------------------------------------------------------
+
+# the reference's fault_soak (benchmarks/bench_engine.py bench_fault_soak)
+FAULTS = dict(plan="host_error@2,host_stall@4:1.5,pool_alloc@2,"
+              "latency_spike@3:0.05", requests=10, prompt_len=12,
+              output_len=24, layers=8, device_slots=2, cache_len=128,
+              page_size=32, pool_pages=512)
+
+
+def _fault_config(**kw):
+    from repro_torch.serving import EngineConfig
+    kw = dict(dict(device_slots=FAULTS["device_slots"],
+                   host_slots=FAULTS["requests"],
+                   cache_len=FAULTS["cache_len"],
+                   page_size=FAULTS["page_size"],
+                   host_pool_pages=FAULTS["pool_pages"],
+                   perf_model="analytic", tier_rebalance=False,
+                   prefix_cache=False, device="cuda"), **kw)
+    return EngineConfig(**kw)
+
+
+def _fault_run(cfg, params, protos, **kw):
+    """``protos`` through one engine at the soak's geometry; returns (the
+    requests, stats, the engine, streams and per-token margins by index,
+    wall seconds)."""
+    import torch
+    from repro_torch.serving import Engine, Request
+    eng = Engine(cfg, params, _fault_config(**kw))
+    reqs = [Request(prompt=list(p.prompt), max_new_tokens=p.max_new_tokens)
+            for p in protos]
+    with _Watch("cuda") as watch:
+        try:
+            t0 = time.perf_counter()
+            eng.run(reqs, max_iterations=20000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            eng.shutdown()
+    if bool(watch.nan):
+        fail("faults: a logit was NaN")
+    margins = watch.margins()
+    outs = {i: list(r.output) for i, r in enumerate(reqs)}
+    marg = {i: [margins.get((r.request_id, j)) for j in range(len(r.output))]
+            for i, r in enumerate(reqs)}
+    return reqs, eng.stats, eng, outs, marg, wall, watch.dtype
+
+
+def _pool_whole(eng, label: str) -> str:
+    pool = eng.executor.pool
+    text = check_pool(eng)
+    if pool.num_free != pool.pages.shape[1] or pool.page_tables \
+            or eng.lc.host_requests or eng.lc.host_slot_owner \
+            or any(r is not None for r in eng.lc.slots):
+        fail(f"{label}: pages, host slots or device slots leaked ({text})")
+    return text
+
+
+def phase_faults() -> dict:
+    """The reference's fault soak on the port: llama3.1-8b at published
+    width, depth cut to 8 layers (a host token costs 9 iterations), 10
+    requests of prompt 12 -> 24 tokens over 2 device and 10 host slots.
+    A fault-free control run, then the plan, the breaker plan, a blocked
+    swap recomputed, and cancels of a queued request, a device resident
+    and a host resident.  Returns the kernels' launches over the soak."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (Engine, InferenceServer, Request,
+                                     ServerConfig)
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.request import Phase, make_synthetic_request
+    base = get_config("llama3.1-8b")
+    cfg = dataclasses.replace(base, num_layers=FAULTS["layers"],
+                              name=f"{base.name}-{FAULTS['layers']}L")
+    params = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(9)
+    protos = [make_synthetic_request(rng, prompt_len=FAULTS["prompt_len"],
+                                     output_len=FAULTS["output_len"],
+                                     vocab=cfg.vocab_size)
+              for _ in range(FAULTS["requests"])]
+    log(f"  {cfg.name}: {cfg.num_layers} layers, {cfg.param_dtype}, "
+        f"{cfg.param_count() / 1e9:.2f} B parameters; {len(protos)} "
+        f"requests of {FAULTS['prompt_len']} -> {FAULTS['output_len']} "
+        f"tokens; plan {FAULTS['plan']}")
+    # warm-up (not measured): cuBLAS heuristics, allocator growth and the
+    # first host jobs, so no healthy job misses its deadline
+    _fault_run(cfg, params, protos[:4], host_slots=FAULTS["requests"])
+    _, ctl, ctl_eng, ctl_out, ctl_m, ctl_wall, dtype = _fault_run(
+        cfg, params, protos)
+    log(f"  control (no faults): {ctl.iterations} iterations in "
+        f"{ctl_wall:.2f} s, host tokens {ctl.host_tokens}, host fallbacks "
+        f"{ctl.host_fallbacks}; pool: {_pool_whole(ctl_eng, 'control')}")
+    if ctl.host_fallbacks != 0:
+        fail(f"the fault-free control read {ctl.host_fallbacks} host "
+             "fallbacks")
+    if ctl.host_tokens <= 0:
+        fail("the control never decoded on the host tier")
+
+    def held_to_control(label, out, marg):
+        same, flips, other = compare_streams(out, ctl_out, marg, ctl_m,
+                                             dtype)
+        if other:
+            fail(f"{label}: streams part from the control by more than two "
+                 "logit ULPs: " + "; ".join(other))
+        return f"{same} of {len(out)} streams identical to the control" + (
+            "" if not flips else " (parted at a tie: " + "; ".join(flips)
+            + ")")
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    reqs, st, eng, out, marg, wall, _ = _fault_run(
+        cfg, params, protos, fault_plan=FAULTS["plan"])
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    fired = eng.faults.snapshot()["fired"]
+    log(f"  soak: {st.iterations} iterations in {wall:.2f} s; host "
+        f"fallbacks {st.host_fallbacks}, breaker trips "
+        f"{st.host_breaker_trips}, faults fired "
+        f"{ {k: n for k, n in fired.items() if n} }, degradation "
+        f"{st.degradation()}; {held_to_control('soak', out, marg)}; pool: "
+        f"{_pool_whole(eng, 'soak')}; decode attention launches "
+        f"{launches['decode_attention']} [{CARD}]")
+    if any(r.failed or not r.done for r in reqs):
+        fail("soak: a request did not complete")
+    if st.host_fallbacks < 1:
+        fail("soak: no host fallback")
+    planned = {s.kind: s.count
+               for s in FaultPlan.parse(FAULTS["plan"]).specs}
+    if any(fired[k] != n for k, n in planned.items()):
+        fail(f"soak: faults fired {fired}, planned {planned}")
+
+    reqs, st, eng, out, marg, wall, _ = _fault_run(
+        cfg, params, protos, fault_plan="host_error@1x3",
+        host_breaker_threshold=3, host_breaker_cooldown=0.05)
+    log(f"  breaker (host_error@1x3, threshold 3, cooldown 0.05 s): host "
+        f"fallbacks {st.host_fallbacks}, breaker trips "
+        f"{st.host_breaker_trips}; {held_to_control('breaker', out, marg)};"
+        f" pool: {_pool_whole(eng, 'breaker')}")
+    if st.host_fallbacks < 3 or st.host_breaker_trips < 1:
+        fail("breaker: it never tripped")
+
+    # a blocked swap: the one-page pool cannot take the victim, so the
+    # urgent admission recomputes it from scratch
+    eng = Engine(cfg, params, _fault_config(
+        device_slots=1, host_slots=1, cache_len=256, host_pool_pages=1,
+        tier_rebalance=True))
+    try:
+        resident = Request(prompt=[1] * 12, max_new_tokens=16)
+        eng.submit(resident)
+        eng.step()
+        urgent = Request(prompt=[2] * 200, max_new_tokens=4, priority=1)
+        eng.submit(urgent)
+        while eng.has_work and eng.stats.iterations < 4000:
+            eng.step()
+        rec = eng.stats.preemption_recomputes
+        ok = all(r.done and not r.failed for r in (resident, urgent))
+    finally:
+        eng.shutdown()
+    log(f"  blocked swap: {rec} recompute preemptions, both requests "
+        f"{'completed' if ok else 'NOT completed'}")
+    if rec < 1 or not ok:
+        fail("blocked swap: no recompute preemption, or a request failed")
+
+    # cancels: 13 requests fill 2 device and 10 host slots, one queues
+    rng = np.random.default_rng(10)
+    scfg = ServerConfig(**dataclasses.asdict(_fault_config()))
+    with InferenceServer(cfg, params, scfg) as server:
+        eng = server.engine
+        handles = [server.submit(make_synthetic_request(
+            rng, prompt_len=FAULTS["prompt_len"],
+            output_len=FAULTS["output_len"], vocab=cfg.vocab_size))
+            for _ in range(13)]
+        for _ in range(200):
+            server.step()
+            if eng._cohort is not None and eng._cohort.attn_ptr != -1:
+                break               # mid-journey: the host cancel defers
+        queued = next(h for h in handles if h.phase is Phase.QUEUED)
+        device = next(r for r in eng.slots if r is not None)
+        host = next(r for r in eng.lc.host_requests.values()
+                    if r.phase is Phase.DECODE_HOST)
+        for rid in (queued.request_id, device.request_id, host.request_id):
+            if not server.cancel(rid):
+                fail(f"cancel of live request {rid} returned False")
+        server.run_until_idle()
+        st = server.stats
+        survivors = [h for h in handles if h.request_id not in (
+            queued.request_id, device.request_id, host.request_id)]
+        pool = _pool_whole(eng, "cancel")
+    log(f"  cancel (a queued request, a device resident, a host resident "
+        f"mid-journey): cancelled {st.cancelled}; survivors "
+        f"{sum(h.done and not h.failed for h in survivors)} of "
+        f"{len(survivors)} finished; pool: {pool}")
+    if st.cancelled != 3 or any(h.failed or not h.done for h in survivors):
+        fail("cancel: wrong count, or a survivor did not finish")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# cli
+# ---------------------------------------------------------------------------
+
+
+def _serve_cli(*extra: str) -> str:
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=600)
-    for line in proc.stdout.strip().splitlines()[-6:]:
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *extra], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines()[-7:]:
         log(f"  | {line}")
     if proc.returncode != 0:
         log(proc.stderr[-3000:])
-        fail(f"python -m repro_torch.launch.serve exited {proc.returncode}")
-    log(f"  launch.serve with its defaults: exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
+        fail(f"python -m repro_torch.launch.serve {' '.join(extra)} exited "
+             f"{proc.returncode}")
+    log(f"  launch.serve {' '.join(extra) or 'with its defaults'}: exit 0 "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def phase_cli() -> None:
+    """The serve CLI with its defaults (the measured perf model, profiled
+    at startup), then with one injected host-worker death, which the
+    watchdog must absorb."""
+    import re
+    out = _serve_cli()
+    if "perf_model=measured" not in out:
+        fail("launch.serve's default perf model is not 'measured'")
+    out = _serve_cli("--fault-plan", "host_error@2")
+    m = re.search(r"host_fallbacks=(\d+)", out)
+    if m is None or int(m.group(1)) < 1:
+        fail("launch.serve --fault-plan host_error@2 printed no host "
+             "fallback")
 
 
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
-PHASES = ("env", "kernels", "exactness", "serving", "serving-hybrid",
-          "serving-chunked", "cli")
+PHASES = ("env", "kernels", "profile", "exactness", "serving",
+          "serving-hybrid", "faults", "serving-chunked", "cli")
 
 
 def main() -> int:
@@ -1693,10 +2059,14 @@ def main() -> int:
     if "kernels" in phases:
         log("== kernels against their plain versions")
         records = phase_kernels()
+    launches = {}       # path -> kernel -> launches over its measured run
+    profile = None
+    if "profile" in phases:
+        log("== profile: OfflineProfiler on llama3.1-8b at published width")
+        profile, launches["profile"] = phase_profile()
     if "exactness" in phases:
         log("== exactness at a reduced size")
         phase_exactness()
-    launches = {}       # path -> kernel -> launches over its measured run
     if "serving" in phases:
         log("== serving llama3.1-8b at published width")
         launches["serving"] = phase_serving()
@@ -1704,10 +2074,14 @@ def main() -> int:
         log("== serving Jamba-1.5-Large (dense FFN, 16 layers) at published "
             "width")
         launches["serving-hybrid"] = phase_serving_hybrid()
+    if "faults" in phases:
+        log("== faults: the fault soak, breaker, recompute and cancel on "
+            "llama3.1-8b (8 layers) at published width")
+        launches["faults"] = phase_faults()
     if "serving-chunked" in phases:
         log("== serving with the reference's defaults (chunked prefill, "
             "prefix cache, migration, preemption): multi-turn chat")
-        launches["serving-chunked"] = phase_serving_chunked()
+        launches["serving-chunked"] = phase_serving_chunked(profile)
     if "cli" in phases:
         log("== python -m repro_torch.launch.serve")
         phase_cli()

@@ -13,7 +13,9 @@
     CUDA event the engine recorded right after the producing step, on a
     copy stream of its own, so the engine thread never waits), appends
     the emitted K/V with one vectorized write, shards the cohort's rows
-    across workers, and buffers results for the next iteration.
+    across workers, and buffers results for the next iteration.  The
+    engine's watchdog abandons a late or failed job (``cancel``) and
+    reruns it on its own thread (``execute_sync``).
 """
 from __future__ import annotations
 
@@ -161,6 +163,9 @@ class _Job:
     positions: np.ndarray            # (n,) token positions of valid rows
     rows: Optional[np.ndarray]       # (n,) valid row indices into q/k/v
     ready: Optional[Any] = None      # CUDA event recorded after q/k/v exist
+    # False for the watchdog's fallback and the breaker-open emit path:
+    # the recovery must not re-enter fault injection
+    inject: bool = True
 
 
 def stack_row_kv_to_pool_layers(cfg: ModelConfig, state: Any, row: int,
@@ -193,13 +198,22 @@ class HostExecutor:
     device dispatch.  ``result`` blocks only if the host is genuinely
     the straggler.  Busy time is split into ``transfer_time`` (device ->
     host copy) and ``compute_time`` (KV append + paged attention).
+
+    A job's Q/K/V are tensors the decode step made for it alone, so a
+    worker that copies them late still reads the values the step wrote.
+    The abandonment check and the K/V append are one critical section
+    (``_commit_lock``, also taken by ``cancel``): once ``cancel`` returns,
+    the abandoned worker writes nothing to the pool.
     """
 
     def __init__(self, cfg: ModelConfig, pool: PagedKVPool,
-                 *, workers: int = 0) -> None:
+                 *, workers: int = 0, faults: Any = None) -> None:
         self.cfg = cfg
         self.pool = pool
         self.page_size = pool.page_size
+        # duck-typed FaultInjector (serving.faults) or None; only its
+        # on_host_job() hook is called, from _execute
+        self.faults = faults
         if workers <= 0:     # leave a core for the device dispatch thread
             workers = max(1, (os.cpu_count() or 2) - 1)
         self.workers = workers
@@ -208,12 +222,16 @@ class HostExecutor:
                                thread_name_prefix="host-attn")
             if workers > 1 else None)
         self._results: Dict[int, Any] = {}
+        self._abandoned: set = set()
         self._lock = threading.Lock()
         self._done = threading.Condition(self._lock)
+        self._commit_lock = threading.Lock()
         self._queue: "queue.Queue[Optional[_Job]]" = queue.Queue()
         self._free_bufs: Dict[tuple, List[np.ndarray]] = {}
         self._pinned: Dict[tuple, List[torch.Tensor]] = {}
-        self._copy_stream: Optional[Any] = None
+        # one copy stream per copying thread: the worker's, and the
+        # engine thread's for execute_sync
+        self._copy_streams: Dict[int, Any] = {}
         self._transfer_time = 0.0
         self._compute_time = 0.0
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -257,6 +275,37 @@ class HostExecutor:
         """Non-blocking readiness check (the paper's GPU re-check)."""
         with self._lock:
             return self._unwrap(job_id, self._results.pop(job_id, None))
+
+    def cancel(self, job_id: int) -> None:
+        """Abandon a submitted job: a published result is discarded (its
+        buffer recycled); a job still in flight publishes nothing and, if
+        it has not appended its K/V yet, never does."""
+        with self._commit_lock, self._done:
+            out = self._results.pop(job_id, None)
+            if out is None:
+                self._abandoned.add(job_id)
+            elif isinstance(out, np.ndarray):
+                self._free_bufs.setdefault(out.shape, []).append(out)
+
+    def execute_sync(self, job_id: int, layer: int,
+                     request_ids: Sequence[int], q, k, v, positions,
+                     *, rows=None) -> np.ndarray:
+        """Run one cohort-layer job on the caller's thread and return its
+        output buffer (the caller recycles it): the watchdog's recovery
+        and the breaker-open emit path.  Same copy, same K/V append at
+        explicit positions, same numpy attention as a worker's job, so the
+        tokens are the same; fault injection is bypassed.  The copy waits
+        for everything the caller enqueued before it."""
+        job = _Job(job_id, layer, list(request_ids), q, k, v,
+                   np.asarray(positions),
+                   None if rows is None else np.asarray(rows, np.int64),
+                   inject=False)
+        if isinstance(q, torch.Tensor) and q.is_cuda:
+            job.ready = torch.cuda.Event()
+            job.ready.record()
+        self._execute(job)
+        with self._done:
+            return self._unwrap(job_id, self._results.pop(job_id))
 
     def recycle(self, buf: np.ndarray) -> None:
         """Return a consumed result buffer for reuse by later jobs."""
@@ -316,7 +365,10 @@ class HostExecutor:
                 self._execute(job)
             except BaseException as e:          # noqa: BLE001 — surfaced
                 with self._done:
-                    self._results[job.job_id] = e
+                    if job.job_id in self._abandoned:
+                        self._abandoned.discard(job.job_id)
+                    else:
+                        self._results[job.job_id] = e
                     self._done.notify_all()
 
     def _out_buffer(self, shape: tuple) -> np.ndarray:
@@ -334,23 +386,38 @@ class HostExecutor:
                    for t in jobs_tensors):
             return [t if isinstance(t, np.ndarray)
                     else t.detach().float().numpy() for t in jobs_tensors]
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(jobs_tensors[0].device)
-        stream = self._copy_stream
+        tid = threading.get_ident()
+        stream = self._copy_streams.get(tid)
+        if stream is None:
+            stream = self._copy_streams[tid] = torch.cuda.Stream(
+                jobs_tensors[0].device)
         bufs = []
         with torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
             for t in jobs_tensors:
-                free = self._pinned.setdefault(tuple(t.shape), [])
-                buf = free.pop() if free else torch.empty(
-                    t.shape, dtype=torch.float32, pin_memory=True)
+                with self._lock:
+                    free = self._pinned.setdefault(tuple(t.shape), [])
+                    buf = free.pop() if free else None
+                if buf is None:
+                    buf = torch.empty(t.shape, dtype=torch.float32,
+                                      pin_memory=True)
                 buf.copy_(t, non_blocking=True)
                 bufs.append(buf)
         stream.synchronize()
         return bufs
 
+    def _release_pinned(self, staged: Sequence[Any]) -> None:
+        """Pinned staging buffers are reusable once their numpy views are
+        no longer read."""
+        with self._lock:
+            for b in staged:
+                if isinstance(b, torch.Tensor):
+                    self._pinned[tuple(b.shape)].append(b)
+
     def _execute(self, job: _Job) -> None:
+        if job.inject and self.faults is not None:
+            self.faults.on_host_job()
         t0 = time.perf_counter()
         staged = self._to_host((job.q, job.k, job.v), job.ready)
         q, k, v = (b.numpy() if isinstance(b, torch.Tensor) else b
@@ -362,8 +429,16 @@ class HostExecutor:
         li = self._pool_layer(job.layer)
         n = len(job.request_ids)
         # the fresh token's K/V for this layer, one vectorized write (the
-        # length advances only once the token's final layer is written)
-        self.pool.append_rows(job.request_ids, li, job.positions, k, v)
+        # length advances only once the token's final layer is written);
+        # an abandoned job writes nothing: its chains may have been freed
+        # and reused since
+        with self._commit_lock:
+            if job.job_id in self._abandoned:
+                with self._done:
+                    self._abandoned.discard(job.job_id)
+                self._release_pinned(staged)
+                return
+            self.pool.append_rows(job.request_ids, li, job.positions, k, v)
         chains = [self.pool.page_tables[(rid, li)] for rid in job.request_ids]
         pt = np.zeros((n, max(len(c) for c in chains)), np.int32)
         for i, c in enumerate(chains):
@@ -383,12 +458,16 @@ class HostExecutor:
                 for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
             for f in futs:
                 f.result()
-        for b in staged:              # pinned staging buffers are reusable
-            if isinstance(b, torch.Tensor):
-                self._pinned[tuple(b.shape)].append(b)
+        self._release_pinned(staged)
         t2 = time.perf_counter()
         with self._done:
-            self._results[job.job_id] = out
+            if job.job_id in self._abandoned:
+                # abandoned after its append (the values the recompute
+                # writes too): drop the late publish
+                self._abandoned.discard(job.job_id)
+                self._free_bufs.setdefault(out.shape, []).append(out)
+            else:
+                self._results[job.job_id] = out
             self._transfer_time += t1 - t0
             self._compute_time += t2 - t1
             self._done.notify_all()

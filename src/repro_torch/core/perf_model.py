@@ -1,21 +1,34 @@
-"""Analytic performance model feeding Algorithm 1 (paper §3.1).
+"""Profiling-informed performance model feeding Algorithm 1 (paper §3.1
+"Offline Profiler and Performance Model").
 
-First-principles roofline timing from hardware constants (FLOP/s, HBM
-bandwidth, host attention bandwidth, link bandwidth), wrapped at serving
-time in an ``OnlineCalibrator`` that corrects it from observed iteration
-times.  Yields the ``Timings`` the scheduler consumes.
+Two sources yield the ``Timings`` the scheduler consumes:
 
-Port of ``repro/core/perf_model.py`` without the measured tables
-(``TablePerfModel``, ``OfflineProfiler``, the ``"measured"`` and
-``"file:"`` specs) and without the quantized host tier's pricing: the
-fp32 host pool is priced at the device's KV bytes per position, as the
-reference prices its fp32 pool.
+  * **measured tables** -- ``core.profiler.OfflineProfiler`` times the
+    port's own ops on the card (the hand-written attention kernels, the
+    linear ops, the numpy host tier, the copies) and stores (x, seconds)
+    samples per op; ``TablePerfModel`` interpolates them
+    piecewise-linearly and extrapolates along the last segment;
+  * **analytic platforms** -- first-principles roofline timing from
+    hardware constants (FLOP/s, HBM bandwidth, host attention bandwidth,
+    link bandwidth).
+
+``PerfModelProvider`` resolves a spec string into either; at serving time
+an ``OnlineCalibrator`` corrects the result from observed iteration times.
+
+Port of ``repro/core/perf_model.py`` without the quantized host tier's
+pricing: the fp32 host pool is priced at the device's KV bytes per
+position, as the reference prices its fp32 pool.  A saved profile has the
+reference's JSON format, so either package loads the other's.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.analytical import Timings
 from repro_torch.models.config import BlockKind, ModelConfig
@@ -216,6 +229,148 @@ class AnalyticPerfModel:
                        **kw)
 
 
+class TablePerfModel:
+    """Piecewise-linear interpolation over measured (x, seconds) samples.
+
+    Ops: "linear" (x = tokens), "gatt" (x = batch * context KV
+    positions), "catt" (same, host), "transfer" (x = bytes), "prefill"
+    (x = tokens).  Each table covers the whole stack (every layer, or
+    every attention layer), as ``OfflineProfiler`` scales them.
+    """
+
+    def __init__(self, tables: Dict[str, List[Tuple[float, float]]],
+                 *, kv_bytes_per_pos: int, num_attn_layers: int,
+                 state_bytes_per_row: int = 0,
+                 host_kv_bytes_per_pos: Optional[int] = None,
+                 fingerprint: Optional[str] = None,
+                 profile_grid: Optional[Dict[str, List[float]]] = None
+                 ) -> None:
+        self.tables = {k: (np.asarray([p[0] for p in v], float),
+                           np.asarray([p[1] for p in v], float))
+                       for k, v in tables.items()}
+        for xs, _ in self.tables.values():
+            if not (np.diff(xs) > 0).all():
+                raise ValueError("table x values must be increasing")
+        self.kv_bytes_per_pos = kv_bytes_per_pos
+        self.num_attn_layers = num_attn_layers
+        self.state_bytes_per_row = state_bytes_per_row
+        # bytes per position as the host pool stores them (None: as the
+        # device does -- the fp32 pool)
+        self.host_kv_bytes_per_pos = (kv_bytes_per_pos
+                                      if host_kv_bytes_per_pos is None
+                                      else host_kv_bytes_per_pos)
+        # the model shape the tables were measured for (model_fingerprint)
+        # and the sample points; None for hand-built tables
+        self.fingerprint = fingerprint
+        self.profile_grid = (None if profile_grid is None else
+                             {k: [float(x) for x in v]
+                              for k, v in profile_grid.items()})
+
+    def _eval(self, op: str, x: float) -> float:
+        xs, ys = self.tables[op]
+        if x >= xs[-1] and len(xs) >= 2:   # extrapolate the last segment
+            # an op never gets cheaper with size: a noisy flat tail must
+            # not extrapolate below the last sample (or to <= 0, which
+            # Timings refuses)
+            slope = max((ys[-1] - ys[-2]) / (xs[-1] - xs[-2]), 0.0)
+            return float(ys[-1] + slope * (x - xs[-1]))
+        return float(np.interp(x, xs, ys))
+
+    def t_linear(self, n_tokens: int) -> float:
+        return self._eval("linear", n_tokens)
+
+    def t_gatt(self, batch: int, context: float) -> float:
+        return self._eval("gatt", batch * max(context, 1.0))
+
+    def t_catt(self, batch: int, context: float,
+               layers: Optional[int] = None) -> float:
+        n_layers = self.num_attn_layers if layers is None else layers
+        per_all = self._eval("catt", batch * max(context, 1.0))
+        return per_all * n_layers / self.num_attn_layers
+
+    def t_transfer(self, n_bytes: float) -> float:
+        return self._eval("transfer", n_bytes)
+
+    def t_migrate(self, n_tokens: int) -> float:
+        """A request's cached K/V span (every attention layer, at the
+        host-stored size) plus its recurrent-state row across the link."""
+        return self.t_transfer(max(n_tokens, 0) * self.host_kv_bytes_per_pos
+                               + self.state_bytes_per_row)
+
+    def t_recompute(self, prompt_tokens: int, emitted_tokens: int = 0
+                    ) -> float:
+        """Re-prefill the prompt plus re-decode each emitted token at its
+        growing context."""
+        prompt_tokens = max(prompt_tokens, 1)
+        emitted = max(emitted_tokens, 0)
+        t = self.t_prefill(prompt_tokens, prompt_tokens)
+        mean_ctx = prompt_tokens + emitted / 2.0
+        t += emitted * (self.t_linear(1) + self.t_gatt(1, mean_ctx))
+        return t
+
+    def t_prefill(self, n_tokens: int, context: float) -> float:
+        return self._eval("prefill", n_tokens)
+
+    def t_prefill_suffix(self, n_new: int, total_context: float) -> float:
+        """A prefix-cache continuation: the table is keyed by token count
+        alone, so the suffix's tokens are charged (monotone in the cached
+        length, which admission backpressure needs)."""
+        return self._eval("prefill", n_new)
+
+    def n_g(self, context: float) -> float:
+        """Device attention rate in KV positions/s at the operating
+        context (the secant through the table)."""
+        x = max(float(context), 1.0)
+        return x / max(self._eval("gatt", x), 1e-9)
+
+    def n_c(self, context: float) -> float:
+        x = max(float(context), 1.0)
+        return x / max(self._eval("catt", x), 1e-9)
+
+    def timings(self, decode_batch: int, mean_context: float,
+                prefill_tokens: int = 0) -> Timings:
+        kw = {}
+        if prefill_tokens:
+            # as AnalyticPerfModel: the mixed branch's attention term is
+            # decode attention plus half the prefill's (causal triangle)
+            kw = dict(t_glinear_pref=self.t_linear(decode_batch
+                                                   + prefill_tokens),
+                      t_gatt_pref=(self.t_gatt(decode_batch, mean_context)
+                                   + 0.5 * self.t_prefill(prefill_tokens,
+                                                          prefill_tokens)))
+        return Timings(
+            t_glinear=self.t_linear(max(decode_batch, 1)),
+            t_gatt=self.t_gatt(max(decode_batch, 1), mean_context),
+            n_g=self.n_g(mean_context), n_c=self.n_c(mean_context), **kw)
+
+    def save(self, path: str) -> None:
+        payload = {
+            "tables": {k: list(map(list, zip(xs.tolist(), ys.tolist())))
+                       for k, (xs, ys) in self.tables.items()},
+            "kv_bytes_per_pos": self.kv_bytes_per_pos,
+            "num_attn_layers": self.num_attn_layers,
+            "state_bytes_per_row": self.state_bytes_per_row,
+            "host_kv_bytes_per_pos": self.host_kv_bytes_per_pos,
+            "fingerprint": self.fingerprint,
+            "profile_grid": self.profile_grid,
+        }
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1)
+
+    @classmethod
+    def load(cls, path: str) -> "TablePerfModel":
+        with open(path) as f:
+            payload = json.load(f)
+        return cls({k: [tuple(p) for p in v]
+                    for k, v in payload["tables"].items()},
+                   kv_bytes_per_pos=payload["kv_bytes_per_pos"],
+                   num_attn_layers=payload["num_attn_layers"],
+                   state_bytes_per_row=payload.get("state_bytes_per_row", 0),
+                   host_kv_bytes_per_pos=payload.get("host_kv_bytes_per_pos"),
+                   fingerprint=payload.get("fingerprint"),
+                   profile_grid=payload.get("profile_grid"))
+
+
 def analytic_model(platform: str, cfg: ModelConfig) -> AnalyticPerfModel:
     if platform not in PLATFORMS:
         raise ValueError(f"unknown platform {platform!r}; "
@@ -223,16 +378,100 @@ def analytic_model(platform: str, cfg: ModelConfig) -> AnalyticPerfModel:
     return AnalyticPerfModel(PLATFORMS[platform], ModelCosts.from_config(cfg))
 
 
-def resolve_perf_model(spec: str, cfg: ModelConfig, *,
-                       platform: str = "h100") -> AnalyticPerfModel:
-    """``"analytic"`` (for ``platform``) or ``"analytic:<platform>"``."""
-    spec = (spec or "analytic").strip()
-    if spec == "analytic":
-        return analytic_model(platform, cfg)
-    if spec.startswith("analytic:"):
-        return analytic_model(spec.split(":", 1)[1], cfg)
-    raise ValueError(f"unknown perf-model spec {spec!r}; the port has "
-                     "'analytic' and 'analytic:<platform>'")
+def model_fingerprint(cfg: ModelConfig) -> str:
+    """Identity of the model shape a measured profile belongs to; host
+    independent (the same model profiled on another machine is a fair
+    reuse, another model's tables are not).  The reference's string for
+    an fp32 host tier."""
+    costs = ModelCosts.from_config(cfg)
+    return (f"{cfg.name}:d{cfg.d_model}:L{cfg.num_layers}"
+            f":attn{costs.num_attn_layers}:kv{costs.kv_bytes_per_pos}")
+
+
+# the grid the engine profiles at startup: smaller than OfflineProfiler's
+# defaults so that serving starts quickly; the small kv points cover the
+# short contexts of modest serving configurations (the profiler shrinks
+# the context to the total), the large ones batched long contexts
+STARTUP_PROFILE_GRID: Dict[str, Tuple[int, ...]] = dict(
+    token_counts=(1, 8, 32, 128),
+    kv_positions=(128, 512, 1024, 4096, 16384, 65536),
+    transfer_sizes=(1 << 16, 1 << 20),
+)
+
+
+@dataclasses.dataclass
+class PerfModelProvider:
+    """Resolves a perf-model spec into the ``timings()`` interface:
+
+      * ``"analytic"``            -- analytic model for ``platform``;
+      * ``"analytic:<platform>"`` -- analytic model for a named platform;
+      * ``"measured"``            -- ``OfflineProfiler`` on ``device`` (a
+        profile cached at ``profile_cache`` for this model, and for
+        ``profile_grid`` when one is given, is loaded instead; a fresh
+        profile is saved there);
+      * ``"file:<path>"``         -- a saved profile.
+    """
+
+    cfg: ModelConfig
+    platform: str = "h100"
+    profile_cache: Optional[str] = None
+    profile_grid: Optional[Dict[str, Tuple[int, ...]]] = None
+    device: str = "cuda"
+
+    def resolve(self, spec: str):
+        spec = (spec or "analytic").strip()
+        if spec == "analytic":
+            return analytic_model(self.platform, self.cfg)
+        if spec.startswith("analytic:"):
+            return analytic_model(spec.split(":", 1)[1], self.cfg)
+        if spec.startswith("file:"):
+            path = spec.split(":", 1)[1]
+            if not os.path.exists(path):
+                raise ValueError(f"perf-model profile not found: {path!r}")
+            model = TablePerfModel.load(path)
+            want = model_fingerprint(self.cfg)
+            if model.fingerprint is not None and model.fingerprint != want:
+                raise ValueError(
+                    f"profile {path!r} was measured for "
+                    f"{model.fingerprint} but this server runs {want}")
+            return model
+        if spec == "measured":
+            if self.profile_cache and os.path.exists(self.profile_cache):
+                model = TablePerfModel.load(self.profile_cache)
+                if model.fingerprint == model_fingerprint(self.cfg) \
+                        and self._grid_matches(model):
+                    return model
+                # stale (another model, no fingerprint, or not measured
+                # at the requested grid): profile again and overwrite
+            from repro_torch.core.profiler import OfflineProfiler
+            grid = dict(self.profile_grid or STARTUP_PROFILE_GRID)
+            model = OfflineProfiler(self.cfg, device=self.device).run(**grid)
+            if self.profile_cache:
+                model.save(self.profile_cache)
+            return model
+        raise ValueError(
+            f"unknown perf-model spec {spec!r}; expected 'analytic', "
+            f"'analytic:<platform>', 'measured' or 'file:<path>'")
+
+    def _grid_matches(self, model: TablePerfModel) -> bool:
+        """A cache satisfies an explicitly requested grid only if it was
+        measured at those points; with none requested, any measurement
+        of this model does."""
+        if self.profile_grid is None:
+            return True
+        want = {k: [float(x) for x in v]
+                for k, v in self.profile_grid.items()}
+        return model.profile_grid == want
+
+
+def resolve_perf_model(spec: str, cfg: ModelConfig, *, platform: str = "h100",
+                       profile_cache: Optional[str] = None,
+                       profile_grid: Optional[Dict[str, Tuple[int, ...]]]
+                       = None, device: str = "cuda"):
+    return PerfModelProvider(cfg, platform=platform,
+                             profile_cache=profile_cache,
+                             profile_grid=profile_grid,
+                             device=device).resolve(spec)
 
 
 class OnlineCalibrator:

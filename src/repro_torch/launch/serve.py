@@ -5,8 +5,12 @@ card: requests come from a paper workload trace (``--workload``) or the
 synthetic default, and Algorithm 1 picks the execution strategy every
 iteration.  The defaults are the reference's: chunked prefill (64
 tokens) beside decode, the prefix cache, rebalancing, preemption with
-the recompute fallback; the ``--no-*`` flags and ``--chunk-tokens 0``
-turn them off.  By default the architecture is reduced to a small geometry;
+the recompute fallback and the host-job watchdog; the ``--no-*`` flags
+and ``--chunk-tokens 0`` turn them off.  Algorithm 1 runs on a measured
+profile of the port's own ops by default (``--perf-model measured``:
+``OfflineProfiler`` at startup, reused from ``--profile-cache`` when it
+holds this model's profile).  ``--fault-plan`` injects deterministic
+faults.  By default the architecture is reduced to a small geometry;
 ``--published`` serves it at its published width (``--layers`` then cuts
 depth only).  Weights are random, from ``--seed``.
 
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -45,9 +50,15 @@ def main() -> None:
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--platform", default="h100",
                     help="platform backing the analytic perf model")
-    ap.add_argument("--perf-model", default="analytic",
+    ap.add_argument("--perf-model", default="measured",
                     help="perf-model spec feeding Algorithm 1: analytic | "
-                         "analytic:<platform>")
+                         "analytic:<platform> | measured | file:<path> "
+                         "(default: measured -- profile the port's ops on "
+                         "the device and the host tier at startup)")
+    ap.add_argument("--profile-cache", default=None,
+                    help="JSON path of the measured profile: loaded when "
+                         "it holds this model's, else written after "
+                         "profiling")
     ap.add_argument("--workload", default=None,
                     choices=sorted(WORKLOADS) + ["synthetic"],
                     help="paper trace driving request generation "
@@ -57,6 +68,9 @@ def main() -> None:
     ap.add_argument("--host-workers", type=int, default=0,
                     help="host-attention worker threads per job "
                          "(0 = auto: cpu_count - 1)")
+    ap.add_argument("--no-bucketed-prefill", action="store_true",
+                    help="prefill each prompt alone at its own length "
+                         "(turns chunking and the prefix cache off)")
     ap.add_argument("--chunk-tokens", type=int, default=64,
                     help="chunked-prefill budget per iteration while "
                          "decode is active (0 = whole-prompt prefill "
@@ -80,9 +94,18 @@ def main() -> None:
                          "every generated request; impossible deadlines "
                          "are rejected at admission, late first tokens "
                          "count as deadline misses")
+    ap.add_argument("--host-job-slack", type=float, default=8.0,
+                    help="host-job watchdog deadline = predicted t_catt x "
+                         "this slack (at least 0.25 s); a late job is "
+                         "rerun on the engine thread")
     ap.add_argument("--no-recompute-fallback", action="store_true",
-                    help="disable recompute-from-scratch preemption "
-                         "(blocked swaps requeue the urgent request)")
+                    help="disable the watchdog's rerun and recompute-from-"
+                         "scratch preemption (host faults fail the engine, "
+                         "blocked swaps requeue the urgent request)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault plan, e.g. "
+                         "'host_stall@3x2:0.5,pool_alloc@1' (see "
+                         "repro_torch.serving.faults)")
     ap.add_argument("--no-stream", action="store_true",
                     help="suppress the per-token stream of request 0")
     ap.add_argument("--device", default="cuda",
@@ -110,13 +133,15 @@ def main() -> None:
         cache_len=args.cache_len,
         enable_offload=not args.no_offload, host_workers=args.host_workers,
         device=str(device), platform=args.platform,
+        bucketed_prefill=not args.no_bucketed_prefill,
         chunk_tokens=args.chunk_tokens,
         prefix_cache=not args.no_prefix_cache,
         prefix_cache_slots=args.prefix_cache_slots,
         tier_rebalance=not args.no_tier_rebalance,
         preemption=not args.no_preemption, deadline=args.deadline,
         recompute_fallback=not args.no_recompute_fallback,
-        perf_model=args.perf_model,
+        host_job_slack=args.host_job_slack, fault_plan=args.fault_plan,
+        perf_model=args.perf_model, profile_cache=args.profile_cache,
         workload=None if args.workload in (None, "synthetic")
         else args.workload,
         num_requests=args.requests, arrival_rate=args.arrival_rate,
@@ -128,6 +153,11 @@ def main() -> None:
           f"workload={scfg.workload or 'synthetic'} "
           f"perf_model={scfg.perf_model}:{scfg.platform}")
     params = init_params(cfg, seed=args.seed, device=device)
+    if scfg.perf_model == "measured" and not (
+            scfg.profile_cache and os.path.exists(scfg.profile_cache)):
+        print("profiling the device and host tiers at startup "
+              "(--profile-cache reuses a profile, --perf-model analytic "
+              "skips it)...", flush=True)
 
     t0 = time.time()
     with InferenceServer(cfg, params, scfg) as server:
@@ -183,6 +213,16 @@ def main() -> None:
         print(f"SLO: {stats.deadline_misses} deadline misses, "
               f"{stats.deadline_rejections} impossible-deadline "
               "rejections")
+    if stats.host_fallbacks or stats.preemption_recomputes \
+            or stats.cancelled or scfg.fault_plan:
+        fired = (server.engine.faults.snapshot()["fired"]
+                 if server.engine.faults is not None else {})
+        print(f"fault tolerance: host_fallbacks={stats.host_fallbacks} "
+              f"host_breaker_trips={stats.host_breaker_trips} "
+              f"preemption_recomputes={stats.preemption_recomputes} "
+              f"cancelled={stats.cancelled} "
+              f"degradation={stats.degradation()}; faults fired "
+              f"{ {k: n for k, n in fired.items() if n} }")
     if stats.host_busy_time:
         print(f"host attention busy: {stats.host_busy_time:.2f}s "
               f"({100 * stats.host_busy_time / wall:.0f}% of wall)")

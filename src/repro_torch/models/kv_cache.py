@@ -86,6 +86,10 @@ class PagedKVPool:
         self._tick = 0
         self.evictions = 0
         self.on_evict: Optional[Callable[[int], None]] = None
+        # chaos hook (serving.faults): called at the top of ``allocate``
+        # and may raise MemoryError to simulate exhaustion; only admission
+        # and preemption allocate, and both tolerate it
+        self.fault_hook: Optional[Callable[[], None]] = None
         self._alloc_lock = threading.Lock()
 
     @property
@@ -152,6 +156,8 @@ class PagedKVPool:
 
     def allocate(self, request_id: int, tokens: int) -> None:
         """Reserve page chains for a new owner with ``tokens`` capacity."""
+        if self.fault_hook is not None:
+            self.fault_hook()
         per_layer = -(-tokens // self.page_size)
         need = per_layer * self.num_layers
         evicted: List[int] = []

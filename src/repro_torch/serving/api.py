@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Iterable, Iterator, List, Optional, Sequence, Union
+from typing import Any, Iterable, Iterator, List, Optional, Sequence, Union
 
 from repro_torch.core.scheduler import ApexScheduler
 from repro_torch.models.config import ModelConfig
@@ -37,9 +37,13 @@ class ServerConfig:
     page_size: int = 32
     host_pool_pages: int = 512
     max_queue: int = 1024
+    temperature: float = 0.0
     enable_offload: bool = True
     host_workers: int = 0
     device: str = "cuda"
+    # bucketed prefill; False prefills each prompt alone at its length
+    # (chunking and the prefix cache then stay off)
+    bucketed_prefill: bool = True
     # chunked prefill co-scheduled with decode: the per-iteration prompt
     # token budget while decode runs (the scheduler may grant less);
     # 0 = whole-prompt bucketed prefill before decode
@@ -49,7 +53,9 @@ class ServerConfig:
     tier_rebalance: bool = True
     # urgent requests may demote strictly lower-priority device residents
     preemption: bool = True
-    # recompute-from-scratch preemption when a swap has no host room
+    # recompute fallbacks: of a failed or late host job, and of a swap
+    # preemption without host room; False fails the engine on host faults
+    # and requeues blocked urgent requests
     recompute_fallback: bool = True
     # default TTFT deadline (seconds from arrival) stamped onto
     # build_requests() workloads; None = no SLO
@@ -58,10 +64,35 @@ class ServerConfig:
     prefix_cache: bool = True
     prefix_cache_slots: int = 2
     # --- Algorithm-1 scheduler ------------------------------------------
+    # perf-model spec (core.perf_model.PerfModelProvider): "analytic" |
+    # "analytic:<platform>" | "measured" | "file:<path>"; "measured"
+    # profiles the port's own ops once at startup (cached at
+    # profile_cache when set, at profile_grid's points when given)
     perf_model: str = "analytic"
+    profile_cache: Optional[str] = None
+    profile_grid: Optional[dict] = None
     platform: str = "h100"
     host_min_ratio: float = 0.0
     max_pipeline_sub_batch: int = 256
+    use_scheduler: bool = True
+    # admission-throttling overrides (None = derive from capacity)
+    device_kv_budget_tokens: Optional[int] = None
+    host_kv_budget_tokens: Optional[int] = None
+    # --- fault tolerance -------------------------------------------------
+    # deterministic chaos plan (serving.faults.FaultPlan, its string, or
+    # None): host-worker deaths and stalls, pool exhaustion, latency
+    # spikes
+    fault_plan: Optional[Any] = None
+    # host-job watchdog: deadline = predicted t_catt x slack, at least
+    # min_timeout; a late or failed job is rerun on the engine thread
+    host_job_slack: float = 8.0
+    host_job_min_timeout: float = 0.25
+    # consecutive fallbacks that trip the breaker, and its base cooldown
+    # (doubles per trip, resets on a healthy host job)
+    host_breaker_threshold: int = 3
+    host_breaker_cooldown: float = 1.0
+    # sliding window (seconds) of the degradation-ladder level
+    degradation_window: float = 5.0
     # --- workload --------------------------------------------------------
     workload: Optional[str] = None   # azure-conv | livebench | dolphin-r1 | osc
     num_requests: int = 12
@@ -223,6 +254,12 @@ class InferenceServer:
         dispatch (GPU_ONLY / ASYNC_OVERLAP / ASYM_PIPELINE) -> retire."""
         with self._step_lock:
             self.engine.step()
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a request wherever it sits (``Engine.cancel``), between
+        iterations; True when it was live."""
+        with self._step_lock:
+            return self.engine.cancel(request_id)
 
     def run_until_idle(self, *, max_iterations: int = 100000) -> EngineStats:
         it = 0

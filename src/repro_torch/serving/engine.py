@@ -29,6 +29,13 @@ executes its decisions:
     lower-priority device resident: its K/V is swapped to the pool, or
     dropped and replayed through the queue (recompute) when no host room
     exists or the replay is priced cheaper.
+  * **host-job watchdog** -- a host job that failed, or missed its
+    deadline (the calibrated ``t_catt`` prediction times
+    ``host_job_slack``, at least ``host_job_min_timeout``), is abandoned
+    and rerun on the engine thread; consecutive fallbacks open a circuit
+    breaker that keeps the engine on the device for a doubling cooldown.
+  * **cancel** -- a request is aborted wherever it sits, its resources
+    freed (a host resident mid-journey at the next token boundary).
 
 All moves copy values, so greedy tokens match a run without them (up
 to the bf16 device / fp32 host K/V of decode tokens, as in the
@@ -53,6 +60,7 @@ from repro_torch.core.overlap_engine import (Cohort, HostExecutor,
 from repro_torch.core.perf_model import OnlineCalibrator, resolve_perf_model
 from repro_torch.core.scheduler import (AdmissionController, ApexScheduler,
                                         Decision, StrategyKind)
+from repro_torch.distributed.fault_tolerance import RestartPolicy
 from repro_torch.models import (ModelParams, decode_step,
                                 decode_with_chunked_prefill,
                                 init_decode_state, prefill_bucketed,
@@ -63,7 +71,10 @@ from repro_torch.models.transformer import HostIO, QKVOut
 from repro_torch.serving.lifecycle import (ChunkPlan, EngineConfig,
                                            EngineStats, RequestLifecycle,
                                            TierPlacer, reject, transition)
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.prefill_exec import (finish_chunks, prefill_batched,
+                                              prefill_into_slot,
+                                              prefill_to_host,
                                               seed_prefix_hits)
 from repro_torch.serving.prefix_cache import PrefixCache, publish_retired
 from repro_torch.serving.request import Phase, Request
@@ -105,31 +116,46 @@ class Engine:
             host_batch=self.e.host_slots if self.e.enable_offload else 0,
             cache_len=self.e.cache_len, device=self.device)
         self.stats = EngineStats()
+        self.stats.degradation_window = self.e.degradation_window
         self.scheduler = scheduler
+        # deterministic chaos (None without a plan): the injector threads
+        # through the executor and the paged pool
+        self.faults = FaultInjector.from_config(self.e.fault_plan)
         self._calibrator: Optional[OnlineCalibrator] = None
-        if self.scheduler is None:
+        if self.scheduler is None and self.e.use_scheduler:
             self._calibrator = OnlineCalibrator(resolve_perf_model(
-                self.e.perf_model, cfg, platform=self.e.platform))
+                self.e.perf_model, cfg, platform=self.e.platform,
+                profile_cache=self.e.profile_cache,
+                profile_grid=self.e.profile_grid, device=str(self.device)))
             self.stats.perf_model_spec = self.e.perf_model
             self.scheduler = ApexScheduler(
                 self._calibrator, host_min_ratio=self.e.host_min_ratio,
                 max_pipeline_sub_batch=self.e.max_pipeline_sub_batch)
         # an injected scheduler without the chunk arguments still works:
         # the engine then sizes the chunk budget itself
-        self._sched_chunk_aware = "chunk_tokens_max" in \
-            inspect.signature(self.scheduler.schedule).parameters
-        # KV budgets from slot and pool capacity
+        self._sched_chunk_aware = self.scheduler is not None and \
+            "chunk_tokens_max" in inspect.signature(
+                self.scheduler.schedule).parameters
+        # KV budgets: the overrides, else slot and pool capacity
+        device_budget = (self.e.device_kv_budget_tokens
+                         if self.e.device_kv_budget_tokens is not None
+                         else self.e.device_slots * self.e.cache_len)
+        host_budget = 0
+        if self.e.enable_offload:
+            host_budget = (self.e.host_kv_budget_tokens
+                           if self.e.host_kv_budget_tokens is not None
+                           else self.e.host_pool_pages * self.e.page_size)
         self.admission = AdmissionController(
-            device_kv_budget_tokens=self.e.device_slots * self.e.cache_len,
-            host_kv_budget_tokens=(self.e.host_pool_pages * self.e.page_size
-                                   if self.e.enable_offload else 0))
+            device_kv_budget_tokens=device_budget,
+            host_kv_budget_tokens=host_budget)
         placer = TierPlacer(admission=self.admission,
                             perf_model=self._calibrator,
                             iters_per_host_token=cfg.num_attn_layers + 1)
         self.lc = RequestLifecycle(self.e, stats=self.stats, placer=placer)
         self._prefill_shapes: set = set()
         self._idle_io: Optional[HostIO] = None
-        self._chunked = self.e.chunk_tokens > 0
+        # chunked prefill (and the prefix cache on it) rides on bucketing
+        self._chunked = self.e.chunk_tokens > 0 and self.e.bucketed_prefill
         self.staging_state: Optional[StackState] = None
         if self._chunked:
             # one staging row per admissible request: prompts prefill
@@ -148,14 +174,31 @@ class Engine:
             pool = PagedKVPool(self.e.host_pool_pages, self.e.page_size,
                                cfg.num_attn_layers, cfg.num_kv_heads,
                                cfg.resolved_head_dim)
+            pool.fault_hook = (self.faults.on_pool_alloc
+                               if self.faults is not None else None)
             self.executor = HostExecutor(cfg, pool,
-                                         workers=self.e.host_workers)
+                                         workers=self.e.host_workers,
+                                         faults=self.faults)
             self.stats.host_workers = self.executor.workers
             self._cohort: Optional[Cohort] = None
             self._pending_job: Optional[int] = None
             self._pending_host_pred = 0.0   # predicted time of pending job
             self._host_compute_seen = 0.0   # executor compute_time watermark
             self._job_ids = iter(range(1, 1 << 30))
+            # host-job watchdog: the pending job's arguments and deadline,
+            # so a stalled or failed job can be rerun on this thread
+            self._pending_meta: Optional[dict] = None
+            self._pending_deadline = 0.0
+            # circuit breaker over consecutive fallbacks: while open (now <
+            # _breaker_until) no host job is submitted and nothing is
+            # placed on or demoted to the host tier; RestartPolicy doubles
+            # the cooldown per trip, a healthy host job resets it
+            self._fallback_streak = 0
+            self._breaker_until = 0.0
+            self._breaker = RestartPolicy(
+                max_restarts=1 << 30,
+                backoff_base=max(self.e.host_breaker_cooldown, 1e-3),
+                backoff_cap=max(self.e.host_breaker_cooldown, 1e-3) * 32)
         # cross-request prefix cache; rides the chunked path (a hit
         # resumes a prompt mid-way)
         self.prefix: Optional[PrefixCache] = None
@@ -240,12 +283,14 @@ class Engine:
         """Admit queued requests through the lifecycle (budgets, slots,
         deadline backpressure and preemption in one placement decision),
         then stage (chunked) or prefill them.  Returns the requests
-        placed this iteration."""
+        placed this iteration.  While the breaker is open, nothing goes to
+        the host tier."""
+        host_ok = self.executor is not None and not self._breaker_open()
         demote = None
-        if self.e.preemption and self.executor is not None:
+        if self.e.preemption and host_ok:
             demote = self._preempt_to_host
         placements = self.lc.admit(
-            pool=self.executor.pool if self.executor is not None else None,
+            pool=self.executor.pool if host_ok else None,
             demote=demote, prompt_reject_reason=self.prompt_reject_reason)
         if not placements:
             return []
@@ -257,9 +302,15 @@ class Engine:
                 zero_recurrent_rows(self.cfg, self.staging_state, rows)
             if self.prefix is not None:
                 seed_prefix_hits(self, placements, rows)
-        else:
+        elif self.e.bucketed_prefill:
             prefill_batched(self, placements)
             self.stats.prefill_compilations = len(self._prefill_shapes)
+        else:
+            for req, tier, slot in placements:
+                if tier == "device":
+                    prefill_into_slot(self, req, slot)
+                else:
+                    prefill_to_host(self, req, slot)
         return [p[0] for p in placements]
 
     # --- tier moves (the placer decides; the engine moves the K/V) --------
@@ -381,6 +432,110 @@ class Engine:
         self.lc.note_recomputed(victim)
         return slot
 
+    # --- host-tier fault tolerance ------------------------------------------
+    def _breaker_open(self) -> bool:
+        """True while the host-tier circuit breaker holds the engine on the
+        device: no host-job submits, no host placements or demotions,
+        until the cooldown elapses and the host tier is probed again."""
+        return (self.executor is not None
+                and time.perf_counter() < self._breaker_until)
+
+    def _host_fallback(self) -> np.ndarray:
+        """Watchdog recovery: abandon the pending host job (late, or died
+        with an exception) and rerun it on this thread through the
+        executor's injection-free path.  The job's Q/K/V are its own
+        tensors and ``append_rows`` writes at explicit positions, so the
+        rerun gives the tokens of a fault-free run; the abandoned worker
+        writes nothing once ``cancel`` returns.  Consecutive fallbacks
+        trip the breaker with a cooldown that doubles per trip."""
+        meta = self._pending_meta
+        self.executor.cancel(self._pending_job)
+        out = self.executor.execute_sync(
+            next(self._job_ids), meta["layer"], meta["request_ids"],
+            meta["q"], meta["k"], meta["v"], meta["positions"],
+            rows=meta["rows"])
+        self.stats.host_fallbacks += 1
+        self._fallback_streak += 1
+        # a recovery's time says nothing of a healthy host tier: never
+        # feed it to the calibrator
+        self._pending_host_pred = 0.0
+        if self._fallback_streak >= self.e.host_breaker_threshold:
+            self._fallback_streak = 0
+            delay = self._breaker.next_delay() or self.e.host_breaker_cooldown
+            self._breaker_until = time.perf_counter() + delay
+            self.stats.host_breaker_trips += 1
+        return out
+
+    # --- client aborts ------------------------------------------------------
+    def cancel(self, request_id: int) -> bool:
+        """Abort a live request wherever it sits -- queue, staging row,
+        device slot or host tier -- releasing what it holds (K/V budget,
+        slot, pool chains, staging row); it finishes with
+        ``error='cancelled'``.  A host resident inside an in-flight cohort
+        journey is finished at the next token boundary (membership is
+        frozen mid-journey).  Returns True when the request was live."""
+        lc = self.lc
+        req = lc.queue.remove(request_id)
+        if req is not None:                       # queued (or RECOMPUTE wait)
+            reject(req, "cancelled")
+            self.stats.cancelled += 1
+            return True
+        for row in list(lc.staging_order):        # mid-chunked-prefill
+            ent = lc.staging[row]
+            if ent.req.request_id != request_id:
+                continue
+            lc.release_staging_row(row)
+            req = ent.req
+            if ent.tier == "device":
+                lc.slots[ent.slot] = None
+                lc.admission.release("device", req.kv_reserved)
+            else:
+                self.executor.free(request_id)
+                lc.host_slot_owner.pop(ent.slot, None)
+                lc.host_requests.pop(request_id, None)
+                lc.admission.release("host", req.kv_reserved)
+            req.kv_reserved = 0
+            req.slot = None
+            reject(req, "cancelled")
+            self.stats.cancelled += 1
+            return True
+        for i, r in enumerate(lc.slots):          # device resident
+            if r is not None and r.request_id == request_id and not r.done:
+                reject(r, "cancelled")
+                lc.admission.release("device", r.kv_reserved)
+                lc.slots[i] = None
+                r.slot = None
+                self.stats.cancelled += 1
+                return True
+        req = lc.host_requests.get(request_id)    # host resident: deferred
+        if req is not None and not req.done:
+            req.cancel_requested = True
+            self._apply_host_cancels()
+            return True
+        return False
+
+    def _apply_host_cancels(self) -> None:
+        """Finish host residents whose cancel was deferred -- only at a
+        cohort token boundary (attn_ptr == -1), where no host job is
+        pending and no recurrent commit is mid-journey.  Runs at the top
+        of every step and from cancel()."""
+        if self.executor is None:
+            return
+        if self._cohort is not None and self._cohort.attn_ptr != -1:
+            return
+        lc = self.lc
+        doomed = [rid for rid, r in lc.host_requests.items()
+                  if r.cancel_requested and not r.done]
+        for rid in doomed:
+            r = lc.host_requests.pop(rid)
+            reject(r, "cancelled")
+            lc.admission.release("host", r.kv_reserved)
+            self.executor.free(rid)
+            lc.host_slot_owner.pop(r.slot, None)
+            r.slot = None
+            r.kv_reserved = 0
+            self.stats.cancelled += 1
+
     def refresh_prefix_gauges(self) -> None:
         """Resident-byte gauges of the prefix cache, per tier, kept
         current on every cache mutation."""
@@ -412,6 +567,8 @@ class Engine:
     # --- Algorithm 1 ---------------------------------------------------------
     def _schedule(self, admitted: List[Request],
                   active_rows: List[int]) -> Optional[Decision]:
+        if self.scheduler is None:
+            return None
         prefill_q, decode_gpu, decode_cpu, backlog = \
             self.lc.schedule_snapshots(admitted, active_rows,
                                        chunked=self._chunked)
@@ -450,6 +607,13 @@ class Engine:
     # --- one engine iteration ------------------------------------------------
     def step(self) -> None:
         t0 = time.perf_counter()
+        if self.faults is not None:
+            spike = self.faults.on_engine_step()
+            if spike is not None:
+                # after t0 on purpose: the spike lands inside the timed
+                # section, so the calibrator sees it like a real stall
+                time.sleep(spike)
+        self._apply_host_cancels()
         admitted = self._admit()
         self._rebalance()
         # rows whose request already reached max_new_tokens straight out
@@ -562,7 +726,7 @@ class Engine:
                        active_rows: List[int]) -> np.ndarray:
         """Greedy tokens of every row, read back once -- the iteration's
         one sync; device rows append theirs."""
-        toks = sample(logits).cpu().numpy()
+        toks = sample(logits, temperature=self.e.temperature).cpu().numpy()
         now = time.perf_counter()
         for i in active_rows:
             r = self.lc.slots[i]
@@ -583,17 +747,42 @@ class Engine:
         The host job is submitted with the device Q/K/V of the decode
         step plus a CUDA event recorded right after it, before the
         iteration's prefill chunk is enqueued: the worker's copy and the
-        host attention overlap the chunk's compute.
+        host attention overlap the chunk's compute.  A job that failed or
+        is past its watchdog deadline is rerun on this thread
+        (``_host_fallback``); while the breaker is open, host attention
+        runs here at the emit point instead of being submitted.
         """
         ctl = self._overlap
         valid = cohort.valid_slots
         bg = self.e.device_slots
         if self._pending_job is not None:
             t_wait = time.perf_counter()
-            if wait:
-                out = self.executor.result(self._pending_job, timeout=120.0)
-            else:
-                out = self.executor.poll(self._pending_job)
+            fell_back = False
+            try:
+                if wait:
+                    timeout = 120.0
+                    if self.e.recompute_fallback and self._pending_deadline:
+                        timeout = max(
+                            self._pending_deadline - time.perf_counter(),
+                            0.001)
+                    out = self.executor.result(self._pending_job,
+                                               timeout=timeout)
+                else:
+                    out = self.executor.poll(self._pending_job)
+                    if out is None and self.e.recompute_fallback \
+                            and self._pending_deadline \
+                            and time.perf_counter() > self._pending_deadline:
+                        raise TimeoutError(
+                            f"host job {self._pending_job} missed its "
+                            "watchdog deadline")
+            except (RuntimeError, TimeoutError):
+                # a worker exception (RuntimeError from the executor) or
+                # the deadline: without the fallback, host faults fail
+                # the engine
+                if not self.e.recompute_fallback:
+                    raise
+                out = self._host_fallback()
+                fell_back = True
             self.stats.host_wait_time += time.perf_counter() - t_wait
             if out is None:
                 host_idle = ctl.host_io(cohort)._replace(
@@ -616,6 +805,13 @@ class Engine:
             cohort.attn_in = to_device(buf, self.device)
             self.executor.recycle(out)
             self._pending_job = None
+            self._pending_meta = None
+            self._pending_deadline = 0.0
+            if not fell_back:
+                # a healthy consume closes the fallback streak and resets
+                # the breaker's cooldown
+                self._fallback_streak = 0
+                self._breaker.record_success()
             # host-side calibration against the executor's compute time
             if self._calibrator is not None and self._pending_host_pred > 0:
                 self._calibrator.observe_host(
@@ -627,9 +823,12 @@ class Engine:
         io = ctl.host_io(cohort)
         emit_layer = ctl.emit_layer(cohort)
         completes = ctl.completes_token(cohort)
+        idx = np.asarray(valid, np.int64)
+        positions = cohort.positions[idx]
+        breaker_open = emit_layer >= 0 and self._breaker_open()
 
         def submit_host_job(qkv: Optional[QKVOut]) -> None:
-            if emit_layer < 0:
+            if emit_layer < 0 or breaker_open:
                 return
             ready = None
             if self.device.type == "cuda":
@@ -638,15 +837,21 @@ class Engine:
             # submitted before the chunk and before the logits sync: the
             # worker copies Q/K/V and computes while the card runs them
             job = next(self._job_ids)
-            idx = np.asarray(valid, np.int64)
-            positions = cohort.positions[idx]
             self.executor.submit(job, emit_layer, cohort.request_ids,
                                  qkv.q, qkv.k, qkv.v, positions, rows=idx,
                                  ready=ready)
             self._pending_job = job
+            # watchdog stash: what the job needs to be rerun here
+            self._pending_meta = dict(
+                layer=emit_layer, request_ids=cohort.request_ids,
+                q=qkv.q, k=qkv.k, v=qkv.v, positions=positions, rows=idx)
+            pred = 0.0
             if self._calibrator is not None:
-                self._pending_host_pred = self._calibrator.t_catt(
+                pred = self._calibrator.t_catt(
                     len(valid), float(np.mean(positions + 1)), layers=1)
+                self._pending_host_pred = pred
+            self._pending_deadline = time.perf_counter() + max(
+                pred * self.e.host_job_slack, self.e.host_job_min_timeout)
 
         clogits = None
         if plan is None:
@@ -659,6 +864,20 @@ class Engine:
                     self.params, self.cfg, tokens, self.state, io,
                     *self._chunk_inputs(plan), self.staging_state,
                     after_decode=submit_host_job)
+        if breaker_open:
+            # the async host tier is suspect: this layer's host attention
+            # runs here, synchronously (ASYM_PIPELINE semantics, no
+            # injection), so in-flight journeys finish without a worker
+            out = self.executor.execute_sync(
+                next(self._job_ids), emit_layer, cohort.request_ids,
+                qkv.q, qkv.k, qkv.v, positions, rows=idx)
+            buf = np.zeros(tuple(cohort.attn_in.shape), np.float32)
+            buf[idx] = out
+            cohort.attn_in = to_device(buf, self.device)
+            self.executor.recycle(out)
+            # keep the compute-time watermark current so the next async
+            # consume is not charged for this work
+            self._host_compute_seen = self.executor.compute_time
         toks = self._commit_device(logits, active_rows)
         cohort.x_carry = x_final[bg:]
         if completes:

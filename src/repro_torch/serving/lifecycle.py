@@ -22,8 +22,8 @@ tier placer, and the registries of which request is where.
     bookkeeping of tier moves, retirement and latency/SLO accounting.
     It decides; the engine executes through narrow callbacks.
 
-Port of ``repro/serving/lifecycle.py``; the fault-plan, watchdog and
-breaker knobs, the int8 host tier and ``Engine.cancel`` come later.
+Port of ``repro/serving/lifecycle.py``; the int8 host tier's knobs
+(``host_kv_dtype``, ``cold_page_compress_after``) come later.
 """
 from __future__ import annotations
 
@@ -52,9 +52,18 @@ class EngineConfig:
     page_size: int = 32
     host_pool_pages: int = 512
     max_queue: int = 1024
+    # sampling temperature passed to ``sample``; the engine holds no
+    # generator, so decoding is greedy whatever the value, as in the
+    # reference (ROADMAP queue 3)
+    temperature: float = 0.0
     # host-tier worker threads sharding each host-attention job's cohort
     # rows (0 = auto: cpu_count - 1, leaving a core for the device thread)
     host_workers: int = 0
+    # bucketed prefill: prompt lengths padded to powers of two and
+    # same-bucket admissions prefilled in one call; False prefills each
+    # prompt alone at its own length (and turns chunking and the prefix
+    # cache off, which ride on bucketing)
+    bucketed_prefill: bool = True
     # chunked prefill co-scheduled with decode: prompts advance in
     # token-budgeted chunks inside the continuous-batching loop, each
     # iteration running the decode batch and one chunk over the staging
@@ -75,17 +84,44 @@ class EngineConfig:
     # device-resident cache rows (a state of their own); 0 keeps the
     # cache in the paged host pool only
     prefix_cache_slots: int = 2
-    # recompute-from-scratch preemption when a swap has no host capacity
-    # (or is priced dearer): the victim's K/V is dropped and it replays
-    # through the queue; False requeues the urgent request instead
-    recompute_fallback: bool = True
-    # Algorithm-1 scheduling: the perf-model spec ("analytic" |
-    # "analytic:<platform>"), the platform backing "analytic", and the
-    # §4.2 knobs passed to ApexScheduler
+    # Algorithm-1 scheduling: the perf-model spec resolved by
+    # PerfModelProvider ("analytic" | "analytic:<platform>" | "measured"
+    # | "file:<path>"), the profile cache and grid of "measured", the
+    # platform backing the analytic specs, and the §4.2 knobs passed to
+    # ApexScheduler; use_scheduler=False runs without Algorithm 1
     perf_model: str = "analytic"
+    profile_cache: Optional[str] = None
+    profile_grid: Optional[Dict[str, tuple]] = None
     platform: str = "h100"
     host_min_ratio: float = 0.0
     max_pipeline_sub_batch: int = 256
+    use_scheduler: bool = True
+    # KV-budget overrides for the AdmissionController; None derives them
+    # from slot and pool capacity (tighter values model a smaller card)
+    device_kv_budget_tokens: Optional[int] = None
+    host_kv_budget_tokens: Optional[int] = None
+    # --- fault tolerance ----------------------------------------------
+    # deterministic fault injection (serving.faults): a FaultPlan or its
+    # parse string ("host_stall@3x2:0.5,..."); None = no injection
+    fault_plan: Optional[Any] = None
+    # host-job watchdog: a submitted host job must land within
+    # max(calibrated t_catt prediction * host_job_slack,
+    # host_job_min_timeout) seconds of its submit, or the engine abandons
+    # it and recomputes the cohort's attention on its own thread
+    host_job_slack: float = 8.0
+    host_job_min_timeout: float = 0.25
+    # master switch of both recompute escape hatches: the watchdog's
+    # fallback above, and recompute-from-scratch preemption when a swap
+    # has no host capacity (or is priced dearer).  False: host faults
+    # fail the engine, blocked swaps requeue the urgent request
+    recompute_fallback: bool = True
+    # host-tier circuit breaker: this many consecutive fallbacks pin the
+    # engine to the device (no host jobs, placements or demotions) for a
+    # cooldown that doubles per trip and resets after a healthy host job
+    host_breaker_threshold: int = 3
+    host_breaker_cooldown: float = 1.0
+    # sliding window (seconds) of the degradation-ladder level
+    degradation_window: float = 5.0
     # where the model and the device KV cache live; "cuda" needs a card
     device: str = "cuda"
 
@@ -173,6 +209,12 @@ class EngineStats:
     prefix_demotions: int = 0
     prefix_device_bytes: int = 0
     prefix_host_bytes: int = 0
+    # host-tier fault tolerance: host jobs abandoned by the watchdog
+    # (deadline or worker exception) and recomputed on the engine thread,
+    # breaker trips, and requests aborted by Engine.cancel
+    host_fallbacks: int = 0
+    host_breaker_trips: int = 0
+    cancelled: int = 0
     # per-tier occupancy: slot-iterations accumulated each iteration
     device_slot_iterations: int = 0
     host_slot_iterations: int = 0
@@ -190,16 +232,19 @@ class EngineStats:
     # last time (perf_counter) each rung of the degradation ladder
     # (``placement.DEGRADATION_LADDER``) fired
     pressure_marks: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the engine copies EngineConfig.degradation_window in
+    degradation_window: float = 5.0
 
     def note_pressure(self, rung: str) -> None:
         self.pressure_marks[rung] = time.perf_counter()
 
-    def degradation(self, window: float = 5.0) -> str:
-        """The most severe ladder rung that fired within ``window`` s."""
+    def degradation(self, window: Optional[float] = None) -> str:
+        """The most severe ladder rung that fired within ``window`` s
+        (default: ``degradation_window``)."""
+        w = self.degradation_window if window is None else window
         now = time.perf_counter()
         return placement.degradation_level(
-            {rung: now - t <= window
-             for rung, t in self.pressure_marks.items()})
+            {rung: now - t <= w for rung, t in self.pressure_marks.items()})
 
     def record_decision(self, decision: Decision) -> None:
         key = decision.strategy.value
@@ -240,6 +285,46 @@ class EngineStats:
     @property
     def itl_p95(self) -> Optional[float]:
         return self._pct(self.itl_samples, 95)
+
+    def snapshot(self) -> Dict[str, Optional[float]]:
+        """Flat metric name -> value view of the serving counters (the
+        surface the reference's gateway exports); None marks a
+        distribution without samples.  The reference's host-pool byte
+        gauges belong to the int8 host tier, not ported yet."""
+        return {
+            "iterations": float(self.iterations),
+            "device_tokens": float(self.device_tokens),
+            "host_tokens": float(self.host_tokens),
+            "wall_time_seconds": self.wall_time,
+            "decode_iters_per_s": self.iterations / max(self.wall_time,
+                                                        1e-9),
+            "tokens_per_s": self.throughput,
+            "migrations": float(self.migrations),
+            "preemptions": float(self.preemptions),
+            "preemption_requeues": float(self.preemption_requeues),
+            "preemption_recomputes": float(self.preemption_recomputes),
+            "host_fallbacks": float(self.host_fallbacks),
+            "host_breaker_trips": float(self.host_breaker_trips),
+            "cancelled": float(self.cancelled),
+            "degradation_level": float(
+                placement.DEGRADATION_LADDER.index(self.degradation())),
+            "deadline_misses": float(self.deadline_misses),
+            "deadline_rejections": float(self.deadline_rejections),
+            "device_occupancy": self.device_occupancy,
+            "host_occupancy": self.host_occupancy,
+            "prefill_chunks": float(self.prefill_chunks),
+            "prefix_lookups": float(self.prefix_lookups),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_hit_tokens": float(self.prefix_hit_tokens),
+            "prefix_evictions": float(self.prefix_evictions),
+            "prefix_demotions": float(self.prefix_demotions),
+            "prefix_device_bytes": float(self.prefix_device_bytes),
+            "prefix_host_bytes": float(self.prefix_host_bytes),
+            "ttft_p50_seconds": self.ttft_p50,
+            "ttft_p95_seconds": self.ttft_p95,
+            "itl_p50_seconds": self.itl_p50,
+            "itl_p95_seconds": self.itl_p95,
+        }
 
     @property
     def prediction_error(self) -> Optional[float]:
@@ -324,6 +409,12 @@ class AdmissionQueue:
     def __iter__(self):
         self._sort()
         return iter(list(self._q))
+
+    def snapshot(self) -> List[Request]:
+        """Point-in-time copy of the queued requests, unsorted: safe from
+        a thread other than the engine's (a plain list copy never touches
+        the ordering state)."""
+        return list(self._q)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,8 @@
-"""Admission-time prefill: the bucketed whole-prompt path and the
-chunked path's admission seeding and chunk completion.
+"""Admission-time prefill: the whole-prompt paths and the chunked path's
+admission seeding and chunk completion.
 
+  * ``prefill_into_slot`` / ``prefill_to_host`` -- one prompt at its own
+    length (``bucketed_prefill=False``);
   * ``prefill_batched`` -- prompt lengths bucket to powers of two and
     same-bucket admissions prefill in ONE device call; device placements
     are spliced into their slot rows (in place), host placements have
@@ -21,7 +23,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.overlap_engine import stack_row_kv_to_pool_layers
+from repro_torch.core.overlap_engine import (stack_row_kv_to_pool_layers,
+                                             to_device)
+from repro_torch.models import init_decode_state, prefill
 from repro_torch.serving.lifecycle import ChunkPlan, pow2_ceil, transition
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.sampler import sample
@@ -103,7 +107,8 @@ def finish_chunks(eng, plan: ChunkPlan, clogits: torch.Tensor) -> None:
     toks: Dict[int, int] = {}
     if done_rows:
         picked = sample(clogits[torch.as_tensor(done_rows,
-                                                device=clogits.device)])
+                                                device=clogits.device)],
+                        temperature=eng.e.temperature)
         toks = dict(zip(done_rows, picked.cpu().tolist()))
     now = time.perf_counter()
     freed: List[int] = []
@@ -145,6 +150,41 @@ def finish_chunks(eng, plan: ChunkPlan, clogits: torch.Tensor) -> None:
             freed, device=eng.staging_state.lengths.device)] = 0
 
 
+def _prefill_one(eng, req: Request):
+    """Prefill one prompt at its own length into a fresh one-row state;
+    returns (that state, its first token)."""
+    transition(req, Phase.PREFILL)
+    sub = init_decode_state(eng.cfg, device_batch=1,
+                            cache_len=eng.e.cache_len, device=eng.device)
+    prompt = to_device(np.asarray([req.prompt], np.int64), eng.device)
+    logits, sub = prefill(eng.params, eng.cfg, {"tokens": prompt}, sub)
+    req.output.append(int(sample(logits, temperature=eng.e.temperature)[0]))
+    if req.first_token_time is None:
+        req.first_token_time = time.perf_counter()
+    return sub
+
+
+def prefill_into_slot(eng, req: Request, slot: int) -> None:
+    """Prefill one prompt and splice its state row into device ``slot``."""
+    sub = _prefill_one(eng, req)
+    eng.splice_device_row(sub, 0, slot, req.prompt_len)
+    transition(req, Phase.DECODE_DEVICE)
+
+
+def prefill_to_host(eng, req: Request, host_slot: int) -> None:
+    """Prefill one prompt on the device and move its attention K/V to the
+    paged pool; recurrent state (hybrids) stays on the device in the
+    unified host row."""
+    sub = _prefill_one(eng, req)
+    if eng.cfg.has_recurrent:
+        splice_recurrent_rows(eng.cfg, eng.state, sub.per_entry, 0,
+                              eng.e.device_slots + host_slot)
+    eng.executor.migrate_prompt(
+        req.request_id,
+        stack_row_kv_to_pool_layers(eng.cfg, sub, 0, req.prompt_len))
+    transition(req, Phase.DECODE_HOST)
+
+
 def prefill_batched(eng, placements: List[Tuple[Request, str, int]]) -> None:
     groups: Dict[int, list] = {}
     for p in placements:
@@ -159,7 +199,7 @@ def prefill_batched(eng, placements: List[Tuple[Request, str, int]]) -> None:
             tokens[j, :req.prompt_len] = req.prompt
             plens[j] = req.prompt_len
         logits, sub = eng.prefill(tokens, plens)
-        toks = sample(logits).cpu().numpy()
+        toks = sample(logits, temperature=eng.e.temperature).cpu().numpy()
         now = time.perf_counter()
         for j, (req, tier, slot) in enumerate(group):
             req.output.append(int(toks[j]))

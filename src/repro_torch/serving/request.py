@@ -66,6 +66,10 @@ class Request:
     # and, with preemption on, lets the request demote a strictly
     # lower-priority device resident to the host tier
     priority: int = 0
+    # client abort flag: set by Engine.cancel for a host resident inside
+    # an in-flight cohort journey; the engine finishes it at the next
+    # token boundary
+    cancel_requested: bool = False
     # recurrent state (hybrids) at prompt end, snapshotted when prefill
     # graduates, before decode advances it: what the prefix cache
     # publishes beside the prompt's K/V
