@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
      not, that decode attention and the scan are one launch per call
      with no allocation but their outputs, and times kernel, plain
      version and one library call (where one exists) against the card's
-     bound -- at the main-path shapes, and also at a long decode (B 8,
+     bound -- at the main-path shapes (llama3.1-8b's, and deepseek-moe-
+     16b's: group 1, head_dim 128), and also at a long decode (B 8,
      S 8192), a long causal prefill (T 4096) and a long scan (B 1,
      T 4096);
   3. profile: ``OfflineProfiler`` on llama3.1-8b at published width over
@@ -39,13 +40,31 @@ Phases (any failure exits non-zero):
      host resident: streams held to the control's, the pool whole;
   8. serving-chunked: the reference's default configuration (chunked
      prefill beside decode, the prefix cache on both tiers, migration,
-     preemption) on multi-turn chat, llama3.1-8b and the 8-layer Jamba
-     at published width: every mechanism must fire, the streams must
-     equal a run with the prefix cache and tier moves off (a stream may
-     part only at a top-2 tie of two logit ULPs), and the pool must end
-     whole; llama runs the traffic once more on the measured profile;
-  9. cli: ``python -m repro_torch.launch.serve`` with its defaults (the
-     measured perf model), and with ``--fault-plan host_error@2``.
+     preemption) on multi-turn chat, llama3.1-8b (16 layers) and the
+     8-layer Jamba at published width: every mechanism must fire, the
+     streams must equal a run with the prefix cache and tier moves off (a
+     stream may part only at a top-2 tie of two logit ULPs), and the pool
+     must end whole; llama runs the traffic once more on a measured
+     profile taken at engine startup, and twice with the int8 host pool,
+     without and with cold-page compression: pages must compress and
+     rehydrate, with the streams of the run without;
+  9. serving-moe: deepseek-moe-16b at published width (28 layers, 64
+     routed experts top-6 + 2 shared) on the analytic perf model, 8
+     requests of 128 -> 16 tokens over 2 device + 4 host slots with
+     whole-prompt prefill (the serving phase's path), once with the fp32
+     host pool and once with the int8 pool and cold-page compression
+     (every host owner there decodes, so none goes cold; serving-chunked
+     runs the compression): both attention kernels held to their plain
+     versions at its head geometry (group 1, head_dim 128), no host
+     fallback, int8 streams equal to fp32's up to two-ULP ties, ~4x fewer
+     host bytes per token, both MoE paths run; the logit drift is printed,
+     and held under the reference's 0.75 on llama3.1-8b cut to 8 layers
+     run the same way (on this MoE geometry the reference's own int8 drift
+     exceeds 0.75: tools/moe_drift_cpu.py);
+ 10. cli: ``python -m repro_torch.launch.serve`` with its defaults (the
+     measured perf model), with ``--fault-plan host_error@2``, and with
+     ``--arch deepseek-moe-16b --perf-model analytic --host-kv-dtype
+     int8``.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
@@ -123,10 +142,20 @@ FEATURES_OFF = dict(prefix_cache=False, tier_rebalance=False,
 # 240, 304 tokens: 3-5 chunks of 64); each conversation submits its next
 # turn when the last one finishes; one priority-1 request (400 tokens ->
 # 96) arrives once both device slots hold priority-0 residents with one
-# token left to decode (see chat_run)
+# token left to decode (see chat_run); the int8 chat runs compress host
+# pages idle for 10 ms
+# serving-moe: deepseek-moe-16b at published width (MHA, 16 heads of 128,
+# 28 layers), 8 requests of 128 -> 16 tokens over 2 device + 4 host slots,
+# the host pool in fp32 and then in int8 with pages compressed after 10 ms
+# idle
+MOE_SERVE = dict(heads=16, kv_heads=16, head_dim=128, layers=28,
+                 cache_len=512, device_slots=2, host_slots=4, page_size=32,
+                 prompt_len=128, output_len=16, requests=8,
+                 compress_after=0.01)
 CHAT = dict(conversations=4, turns=3, system_len=128, user_len=48,
             output_len=16, urgent_len=400, urgent_output=96, device_slots=2,
-            host_slots=4, cache_len=512, page_size=32)
+            host_slots=4, cache_len=512, page_size=32, llama_layers=16,
+            compress_after=0.01)
 CARD = ""           # nvidia-smi's "name, power.limit", set by phase 1
 # a part of each hand-written kernel's name, as the profiler reports it
 PORT_KERNELS = {"decode_attention": "decode_kernel",
@@ -592,32 +621,27 @@ def bench_scan(gen) -> dict:
                                "fp32")}
 
 
-def bench_main_shapes(gen) -> dict:
-    """Kernel vs plain vs library at the serving phase's shapes."""
+def _bench_decode(gen, *, b, h, kv, d, s, layers, lo, hi) -> dict:
+    """Decode attention at a serving shape: one call per layer over the
+    stacked cache (G, B, S, KV, D), rotating layers so K/V come from HBM
+    as in a real step; lengths drawn in [lo, hi).  Kernel vs plain
+    version vs SDPA with the length mask made explicit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
-    dt = torch.bfloat16
-    el = 2
-    h, kv, d = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"]
-    s, layers, b = MAIN["cache_len"], MAIN["layers"], MAIN["device_slots"]
-    out = {}
-
-    # decode: one call per layer over the stacked cache (G, B, S, KV, D),
-    # rotating layers so K/V come from HBM as in a real step
+    dt, el = torch.bfloat16, 2
     kc = _randn(gen, (layers, b, s, kv, d), dt, "cuda")
     vc = _randn(gen, (layers, b, s, kv, d), dt, "cuda")
     q = _randn(gen, (b, h, d), dt, "cuda")
-    lengths = torch.randint(MAIN["prompt_len"] + 1,
-                            MAIN["prompt_len"] + MAIN["output_len"] + 1, (b,),
-                            generator=gen, device="cuda", dtype=torch.int32)
+    lengths = torch.randint(lo, hi, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
     got = decode_attention_cuda(q, kc[0], vc[0], lengths)
     err, ok = close(got, ref.decode_attention_ref(q, kc[0], vc[0], lengths),
                     TOL["decode", "bfloat16"])
+    shape = f"B{b} H{h} KV{kv} D{d} S{s} lengths {lengths.tolist()} bf16"
     if not ok:
-        fail(f"decode at main shape: err {err}")
+        fail(f"decode at {shape}: err {err}")
     layer = [0]
 
     def rot(fn):
@@ -638,11 +662,78 @@ def bench_main_shapes(gen) -> dict:
     n_pos = int(lengths.sum())
     nbytes = 2 * n_pos * kv * d * el + 2 * b * h * d * el + 4 * b
     flops = 4 * n_pos * h * d
-    out["decode_attention"] = _record(
+    return _record(
         "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:99", err, times, nbytes,
-        flops, "bfloat16",
-        f"B{b} H{h} KV{kv} D{d} S{s} lengths {lengths.tolist()} bf16")
+        flops, "bfloat16", shape)
+
+
+def _bench_chunk(gen, *, cb, ct, s, h, kv, d, label="chunk",
+                 spread=True) -> dict:
+    """Prefill attention at a chunk of the chunked path: every staging row
+    advances ``ct`` tokens at its own offset into an ``s`` cache (offset
+    0 for every row when not ``spread``: a whole-prompt bucket); kernel
+    vs plain version vs SDPA with the causal mask made explicit (SDPA
+    cannot take per-row offsets as a causal flag).  The bound counts the
+    keys each row's chunk sees."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    dt, el = torch.bfloat16, 2
+    q = _randn(gen, (cb, ct, h, d), dt, "cuda")
+    k = _randn(gen, (cb, s, kv, d), dt, "cuda")
+    v = _randn(gen, (cb, s, kv, d), dt, "cuda")
+    off = torch.linspace(0, s - ct, cb, device="cuda").round().to(
+        torch.int32) * int(spread)
+    shape = f"{label} B{cb} T{ct} S{s} H{h} KV{kv} D{d} q_offset " \
+        f"{off.tolist()} bf16"
+    got = prefill_attention_cuda(q, k, v, None, off)
+    err, ok = close(got, ref.prefill_attention_ref(q, k, v, None, off),
+                    TOL["prefill", "bfloat16"])
+    if not ok:
+        fail(f"prefill at {shape}: err {err}")
+    qpos = off[:, None] + torch.arange(ct, device="cuda")[None, :]
+    mask = (torch.arange(s, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]             # (B, 1, T, S)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    times = _times(
+        lambda: prefill_attention_cuda(q, k, v, None, off),
+        lambda: ref.prefill_attention_ref(q, k, v, None, off),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True))
+    visible = int((off.long() + ct).sum())     # keys each row's chunk sees
+    pairs = int((ct * off.long() + ct * (ct + 1) // 2).sum())
+    nbytes = 2 * cb * ct * h * d * el + 2 * visible * kv * d * el + 4 * cb
+    flops = 4 * pairs * h * d
+    return _record(
+        "prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:128", err, times, nbytes,
+        flops, "bfloat16", shape)
+
+
+def _sub_record(rec: dict) -> dict:
+    """The measured numbers of a kernel record at a second shape, nested
+    in the kernel's main record."""
+    return {key: rec[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "max_abs_err", "shape")}
+
+
+def bench_main_shapes(gen) -> dict:
+    """Kernel vs plain vs library at the serving phase's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    dt = torch.bfloat16
+    el = 2
+    h, kv, d = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"]
+    s = MAIN["cache_len"]
+    out = {"decode_attention": _bench_decode(
+        gen, b=MAIN["device_slots"], h=h, kv=kv, d=d, s=s,
+        layers=MAIN["layers"], lo=MAIN["prompt_len"] + 1,
+        hi=MAIN["prompt_len"] + MAIN["output_len"] + 1)}
 
     # prefill: one admission bucket -- 8 prompts of 128 into a 512 cache
     pb, t = MAIN["requests"], MAIN["prompt_len"]
@@ -674,53 +765,30 @@ def bench_main_shapes(gen) -> dict:
 
 
 def bench_chunk_shape(gen) -> dict:
-    """Prefill attention at a chunk of the chunked path: every staging row
-    (2 device + 4 host slots) advances 64 tokens at its own offset into a
-    512 cache; kernel vs plain version vs SDPA with the causal mask made
-    explicit.  The bound counts the keys each row's chunk sees."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
-    dt, el = torch.bfloat16, 2
-    h, kv, d, s = MAIN["heads"], MAIN["kv_heads"], MAIN["head_dim"], \
-        CHAT["cache_len"]
-    cb, ct = CHAT["device_slots"] + CHAT["host_slots"], 64
-    q = _randn(gen, (cb, ct, h, d), dt, "cuda")
-    k = _randn(gen, (cb, s, kv, d), dt, "cuda")
-    v = _randn(gen, (cb, s, kv, d), dt, "cuda")
-    off = torch.linspace(0, s - ct, cb, device="cuda").round().to(
-        torch.int32)
-    got = prefill_attention_cuda(q, k, v, None, off)
-    err, ok = close(got, ref.prefill_attention_ref(q, k, v, None, off),
-                    TOL["prefill", "bfloat16"])
-    if not ok:
-        fail(f"prefill at the chunk shape: err {err}")
-    qpos = off[:, None] + torch.arange(ct, device="cuda")[None, :]
-    mask = (torch.arange(s, device="cuda")[None, None, :]
-            <= qpos[:, :, None])[:, None]             # (B, 1, T, S)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    times = _times(
-        lambda: prefill_attention_cuda(q, k, v, None, off),
-        lambda: ref.prefill_attention_ref(q, k, v, None, off),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               enable_gqa=True))
-    visible = int((off.long() + ct).sum())     # keys each row's chunk sees
-    pairs = int((ct * off.long() + ct * (ct + 1) // 2).sum())
-    nbytes = 2 * cb * ct * h * d * el + 2 * visible * kv * d * el + 4 * cb
-    flops = 4 * pairs * h * d
-    chunk = _record(
-        "prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
-        "src/repro/kernels/prefill_attention.py:128", err, times, nbytes,
-        flops, "bfloat16",
-        f"chunk B{cb} T{ct} S{s} H{h} KV{kv} D{d} q_offset "
-        f"{off.tolist()} bf16")
-    rec = {key: chunk[key] for key in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms",
-                                       "max_abs_err")}
-    rec["shape"] = (f"B{cb} T{ct} S{s} H{h} KV{kv} D{d} q_offset "
-                    f"{off.tolist()} bf16")
-    return rec
+    """Prefill attention at a chunk of llama's chunked path: 2 device + 4
+    host staging rows, 64 tokens each, into a 512 cache."""
+    rec = _bench_chunk(gen, cb=CHAT["device_slots"] + CHAT["host_slots"],
+                       ct=64, s=CHAT["cache_len"], h=MAIN["heads"],
+                       kv=MAIN["kv_heads"], d=MAIN["head_dim"])
+    return _sub_record(rec)
+
+
+def bench_moe_shapes(gen) -> dict:
+    """Both attention kernels at deepseek-moe-16b's serving shapes (MHA:
+    group 1, head_dim 128): decode over the 2 device rows of 28 layers'
+    caches, and the first admission bucket (6 prompts of 128)."""
+    m = MOE_SERVE
+    dec = _bench_decode(gen, b=m["device_slots"], h=m["heads"],
+                        kv=m["kv_heads"], d=m["head_dim"],
+                        s=m["cache_len"], layers=m["layers"],
+                        lo=m["prompt_len"] + 1,
+                        hi=m["prompt_len"] + m["output_len"] + 1)
+    pre = _bench_chunk(gen, cb=m["device_slots"] + m["host_slots"],
+                       ct=m["prompt_len"], s=m["cache_len"], h=m["heads"],
+                       kv=m["kv_heads"], d=m["head_dim"],
+                       label="deepseek bucket", spread=False)
+    return {"decode_attention": _sub_record(dec),
+            "prefill_attention": _sub_record(pre)}
 
 
 def graph_launches(fn, calls: int, kernel: str) -> dict:
@@ -895,7 +963,8 @@ def _record(name, source, replaces, err, times, nbytes, flops, dt,
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": times["plain_ms"], "bound_ms": bound,
-            "bound_by": by, "library_ms": times["library_ms"]}
+            "bound_by": by, "library_ms": times["library_ms"],
+            "shape": shape}
 
 
 def phase_kernels() -> dict:
@@ -919,8 +988,10 @@ def phase_kernels() -> dict:
     records = bench_main_shapes(gen)
     bench_long_shapes(gen)
     records["mamba_selective_scan"] = bench_scan(gen)
-    # last, so every earlier case draws the inputs it drew without it
+    # last, so every earlier case draws the inputs it drew without them
     records["prefill_attention"]["chunk_shape"] = bench_chunk_shape(gen)
+    for name, rec in bench_moe_shapes(gen).items():
+        records[name]["moe_shape"] = rec
     return records
 
 
@@ -930,7 +1001,8 @@ def phase_kernels() -> dict:
 
 
 def hybrid_config(**kw):
-    """Jamba-1.5-Large with dense FFNs (the MoE FFN is not ported)."""
+    """Jamba-1.5-Large with dense FFNs: with its published MoE FFN one
+    8-layer period holds 77 GB of experts, more than one card."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.config import FFNKind
@@ -1019,7 +1091,7 @@ def _serve_once(cfg, params, scfg, prompts, output_len):
     import torch
     from repro_torch.serving import InferenceServer, Request
     from repro_torch.serving.engine import Engine
-    nan = torch.zeros((), dtype=torch.bool, device="cuda")
+    nan = torch.zeros((), dtype=torch.bool, device=scfg.device)
     commit, prefill = Engine._commit_device, Engine.prefill
     buckets = [0]
 
@@ -1042,7 +1114,8 @@ def _serve_once(cfg, params, scfg, prompts, output_len):
             for r in reqs:
                 server.submit(r)
             stats = server.run_until_idle()
-            torch.cuda.synchronize()
+            if scfg.device == "cuda":
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         Engine._commit_device, Engine.prefill = commit, prefill
@@ -1247,12 +1320,11 @@ def chat_pool_pages(cfg) -> int:
 
 def chat_config(cfg, device: str, **features):
     from repro_torch.serving import ServerConfig
-    return ServerConfig(device_slots=CHAT["device_slots"],
-                        host_slots=CHAT["host_slots"],
-                        cache_len=CHAT["cache_len"],
-                        page_size=CHAT["page_size"],
-                        host_pool_pages=chat_pool_pages(cfg), device=device,
-                        **features)
+    kw = dict(device_slots=CHAT["device_slots"],
+              host_slots=CHAT["host_slots"], cache_len=CHAT["cache_len"],
+              page_size=CHAT["page_size"],
+              host_pool_pages=chat_pool_pages(cfg), device=device)
+    return ServerConfig(**{**kw, **features})
 
 
 class _Watch:
@@ -1261,13 +1333,16 @@ class _Watch:
     each token's top-2 logit gap and top logit, keyed by (request id,
     token index) -- device rows at every commit, host rows when their
     token completes, first tokens at graduation.  Also counts the chunk
-    budgets Algorithm 1 granted (budget -> iterations)."""
+    budgets Algorithm 1 granted (budget -> iterations).  With
+    ``keep_rows`` it keeps each of those logit rows too (``logit_rows``),
+    for comparing two runs' logits token by token."""
 
-    def __init__(self, device: str):
+    def __init__(self, device: str, keep_rows: bool = False):
         import collections
         import torch
         self.nan = torch.zeros((), dtype=torch.bool, device=device)
-        self.keys, self.tops = [], []
+        self.keys, self.tops, self.kept = [], [], []
+        self.keep_rows = keep_rows
         self.last = None
         self.dtype = None
         self.budgets = collections.Counter()
@@ -1279,8 +1354,18 @@ class _Watch:
         self.dtype = logits.dtype
         sel = logits[torch.as_tensor(rows, device=logits.device)].float()
         self.tops.append(torch.topk(sel, 2, dim=-1).values)
+        if self.keep_rows:
+            self.kept.append(sel)
         self.keys += keys
         self.nan.logical_or_(torch.isnan(sel).any())
+
+    def logit_rows(self) -> dict:
+        """(request id, token index) -> that token's fp32 logit row."""
+        import torch
+        if not self.kept:
+            return {}
+        rows = torch.cat(self.kept).cpu().numpy()
+        return dict(zip(self.keys, rows))
 
     def margins(self) -> dict:
         """(request id, token index) -> (top-2 gap, top logit); a token
@@ -1370,9 +1455,13 @@ def check_pool(engine) -> str:
                if e.tier == "host"} if engine.prefix is not None else set()
     if occ != pool.page_refs or min(pool.page_refs.values(), default=1) < 1:
         fail("pool refcounts do not balance the page chains")
-    if set(pool.free_pages) & set(occ) or \
-            len(pool.free_pages) + len(occ) != pool.pages.shape[1]:
+    # compressed pages hold negative sentinel ids and no physical page
+    phys = {p for p in occ if p >= 0}
+    if set(pool.free_pages) & phys or \
+            len(pool.free_pages) + len(phys) != pool.pages.shape[1]:
         fail("pool pages leaked or double-freed")
+    if {p for p in occ if p < 0} != set(pool._compressed):
+        fail("compressed pages and their blobs disagree")
     if owners - entries:
         fail(f"pool owners {sorted(owners - entries)} outlived their "
              "requests")
@@ -1380,12 +1469,15 @@ def check_pool(engine) -> str:
             f"{len(pool.free_pages)} free of {pool.pages.shape[1]}")
 
 
-def chat_run(cfg, params, scfg, *, seed: int = 0, trace_iters: int = 0):
+def chat_run(cfg, params, scfg, *, seed: int = 0, trace_iters: int = 0,
+             scheduler=None, urgent_request: bool = True):
     """Drive the chat traffic through ``InferenceServer`` until every turn
     and the urgent request finished.  Returns (outputs by (conversation,
     turn) and "urgent", stats, wall seconds, (watch, each stream's
     per-token (top-2 gap, top logit)), server's engine, traced ops or
-    None).  With ``trace_iters``, the run is cut short:
+    None).  ``scheduler`` replaces Algorithm 1 (``Pipelined``);
+    ``urgent_request=False`` leaves the priority-1 request out.  With
+    ``trace_iters``, the run is cut short:
     ``torch.profiler`` traces that many iterations once chunks co-run
     with decode on both tiers, and the traced kernels are returned."""
     import numpy as np
@@ -1401,8 +1493,8 @@ def chat_run(cfg, params, scfg, *, seed: int = 0, trace_iters: int = 0):
     urgent_prompt = rng.integers(0, v, CHAT["urgent_len"]).tolist()
     n_out = CHAT["output_len"]
     outs, rids, traced = {}, {}, None
-    with _Watch(scfg.device) as watch, InferenceServer(cfg, params,
-                                                       scfg) as server:
+    with _Watch(scfg.device) as watch, InferenceServer(
+            cfg, params, scfg, scheduler=scheduler) as server:
         eng = server.engine
         live = {c: (0, server.submit(Request(prompt=system + users[c][0],
                                              max_new_tokens=n_out)))
@@ -1428,7 +1520,7 @@ def chat_run(cfg, params, scfg, *, seed: int = 0, trace_iters: int = 0):
             # finishes on the host while the urgent request still decodes
             # (so no slot frees to migrate it back), publishes its prompt
             # by forking its pool chains, and its next turn hits that entry
-            if urgent is None and all(
+            if urgent_request and urgent is None and all(
                     r is not None and r.priority == 0
                     and r.phase is Phase.DECODE_DEVICE
                     and len(r.output) == n_out - 1 for r in eng.slots):
@@ -1449,14 +1541,15 @@ def chat_run(cfg, params, scfg, *, seed: int = 0, trace_iters: int = 0):
                         prompt=prompt, max_new_tokens=n_out)))
                 else:
                     del live[c]
-            if not live and urgent is not None and urgent.done:
+            if not live and (not urgent_request
+                             or urgent is not None and urgent.done):
                 break
         else:
             fail("the chat traffic did not finish in 20000 iterations")
         if scfg.device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        if not trace_iters:
+        if not trace_iters and urgent_request:
             if urgent is None:
                 fail("both device slots never held priority-0 residents")
             if urgent.failed:
@@ -1576,14 +1669,13 @@ def _budgets_text(budgets) -> str:
     return ", ".join(f"{b}: {n}" for b, n in sorted(budgets.items()))
 
 
-def _measured_chat(cfg, params, res: dict, profile) -> None:
+def _measured_chat(cfg, params, res: dict) -> None:
     """The chat traffic once more with Algorithm 1 on the measured profile
-    (``perf_model="measured"``, cached at ``profile`` by the profile
-    phase, else profiled at startup): its numbers beside the analytic
-    run's, and its streams held to the tie-aware bar against the
-    features-off run."""
+    (``perf_model="measured"``: ``OfflineProfiler`` at engine startup, as
+    the serve CLI does): its numbers beside the analytic run's, and its
+    streams held to the tie-aware bar against the features-off run."""
     on, st, wall, (watch, on_m), _, _ = chat_run(cfg, params, chat_config(
-        cfg, "cuda", perf_model="measured", profile_cache=profile))
+        cfg, "cuda", perf_model="measured"))
     if bool(watch.nan):
         fail("measured chat run: a logit was NaN")
     same, flips, other = compare_streams(on, res["off"], on_m, res["off_m"],
@@ -1613,13 +1705,138 @@ def _measured_chat(cfg, params, res: dict, profile) -> None:
                               + "; ".join(flips)))
 
 
-def _chunked_published(cfg, trace_iters: int, profile=None,
-                       measured: bool = False) -> dict:
+class Pipelined:
+    """Algorithm 1 pinned to Asymmetric Pipelining with the whole chunk
+    budget: every host job is waited for, so no decision depends on step
+    times and two runs of the same traffic take the same iterations."""
+
+    def schedule(self, prefill, decode_gpu, decode_cpu, *, mean_context,
+                 prefill_tokens=0, chunk_backlog_tokens=0,
+                 chunk_tokens_max=0):
+        from repro_torch.core.scheduler import Decision, StrategyKind
+        return Decision(StrategyKind.ASYM_PIPELINE, list(prefill),
+                        list(decode_gpu), list(decode_cpu),
+                        chunk_tokens=min(chunk_backlog_tokens,
+                                         chunk_tokens_max))
+
+
+class _PoolPaths:
+    """Counts, over a run, the host pool's page compressions and
+    rehydrations by the method that asked for them: the cold sweep or
+    the reclaim; a write, or ``ensure_hot`` on behalf of ``gather`` or a
+    host job.  Both counted methods run under the pool's lock."""
+
+    NAMES = ("_compress_page_locked", "_decompress_page_locked")
+
+    def __enter__(self):
+        import collections
+        import sys
+        from repro_torch.models.kv_cache import PagedKVPool
+        self.counts = collections.Counter()
+        self._saved = {name: getattr(PagedKVPool, name) for name in self.NAMES}
+
+        def counted(name, orig):
+            verb = name.split("_")[1]
+
+            def call(pool, *args, **kw):
+                frame = sys._getframe(1)
+                who = frame.f_code.co_name
+                if who == "ensure_hot":
+                    who += f" ({frame.f_back.f_code.co_name})"
+                self.counts[f"{verb} by {who}"] += 1
+                return orig(pool, *args, **kw)
+            return call
+        for name, orig in self._saved.items():
+            setattr(PagedKVPool, name, counted(name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.kv_cache import PagedKVPool
+        for name, orig in self._saved.items():
+            setattr(PagedKVPool, name, orig)
+
+
+def _int8_chat(cfg, params, device: str) -> None:
+    """The chat traffic with the host tier in int8.  First twice, without
+    and with pages compressed after ``CHAT["compress_after"]`` s idle,
+    with Algorithm 1 pinned (``Pipelined``), twice ``chat_pool_pages``
+    and the conversations only (pinned, both device slots need not ever
+    hold residents one token from their end, which the urgent request
+    waits for): neither run reclaims, so compression changes neither
+    timing-driven decisions nor what the prefix cache keeps, and as it is
+    lossless the streams must be identical.  Idle prefix entries and host
+    residents waiting to decode go cold; writes and host jobs rehydrate
+    them.  Then once more on the chat phase's own configuration (its
+    pool, Algorithm 1, the urgent request) with pages going cold only
+    after an hour: only the LRU reclaim compresses then, before it
+    evicts, under allocation pressure (what it compresses may be evicted
+    before anything reads it).  Each run: no NaN, no host fallback, the
+    pool whole at the end, and where pages were compressed and
+    rehydrated, by which path."""
+    runs = {}
+    cold = dict(cold_page_compress_after=CHAT["compress_after"])
+    for label, kw, pinned in (
+            ("int8, pinned", {}, True),
+            ("int8 + cold pages, pinned", cold, True),
+            ("int8 + pages cold after an hour, the phase's configuration",
+             dict(cold_page_compress_after=3600.0), False)):
+        extra = dict(host_pool_pages=2 * chat_pool_pages(cfg)) \
+            if pinned else {}
+        with _PoolPaths() as paths:
+            outs, st, wall, (watch, _), eng, _ = chat_run(
+                cfg, params, chat_config(cfg, device, host_kv_dtype="int8",
+                                         **kw, **extra),
+                scheduler=Pipelined() if pinned else None,
+                urgent_request=not pinned)
+        pool = check_pool(eng)
+        if bool(watch.nan):
+            fail(f"{label} chat run: a logit was NaN")
+        if st.host_fallbacks:
+            fail(f"{label} chat run: {st.host_fallbacks} host fallbacks on "
+                 "a healthy run")
+        if st.host_kv_dtype_bytes != 1:
+            fail(f"{label} chat run: the pool did not store int8")
+        n_tok = sum(len(o) for o in outs.values())
+        log(f"  {label} chat run: {st.iterations} iterations in "
+            f"{wall:.3f} s, {n_tok / wall:.2f} output tokens/s; prefix hits "
+            f"(device / host) {st.prefix_device_hits} / "
+            f"{st.prefix_host_hits}, preemptions {st.preemptions}; pages "
+            f"compressed {st.host_pages_compressed}, decompressed "
+            f"{st.host_pages_decompressed} (compressed/raw EWMA "
+            f"{st.host_compressed_ratio_ewma}), by path "
+            f"{dict(sorted(paths.counts.items()))}; pool reclaims "
+            f"{eng.executor.pool.evictions}; pool at the end: {pool} "
+            f"[{CARD}]")
+        if pinned and kw and (st.host_pages_compressed <= 0
+                              or st.host_pages_decompressed <= 0):
+            fail(f"{label} chat run compressed {st.host_pages_compressed} "
+                 f"and decompressed {st.host_pages_decompressed} pages; "
+                 "both must be > 0")
+        if not kw and (st.host_pages_compressed
+                       or st.host_pages_decompressed):
+            fail(f"{label} chat run compressed pages")
+        if not pinned and paths.counts["compress by _reclaim_locked"] <= 0:
+            fail(f"{label} chat run: the reclaim compressed no page")
+        runs[label] = (outs, eng.executor.pool.evictions)
+    (plain, pev), (squeezed, cev), _ = runs.values()
+    if pev or cev:
+        fail(f"the pinned int8 chat runs reclaimed {pev} / {cev} pool "
+             "owners under pressure")
+    parted = [key for key in plain if plain[key] != squeezed.get(key)]
+    log(f"  cold pages against none (both int8, pinned): "
+        f"{len(plain) - len(parted)} of {len(plain)} streams identical")
+    if parted:
+        fail(f"cold-page compression changed the streams of {parted}")
+
+
+def _chunked_published(cfg, trace_iters: int, measured: bool = False,
+                       int8: bool = False) -> dict:
     """The chat traffic on ``cfg`` at published width (random bf16 weights,
     seed 0): identity against the features-off run, the end-to-end
     numbers of the measured (defaults) run, a traced window, and each
     kernel's launches over the measured run.  ``measured`` adds a run on
-    the measured perf model (``_measured_chat``)."""
+    the measured perf model (``_measured_chat``), ``int8`` the int8 host
+    tier with and without cold pages (``_int8_chat``)."""
     import torch
     from repro_torch.models import init_params
     from repro_torch.models.config import BlockKind
@@ -1670,7 +1887,9 @@ def _chunked_published(cfg, trace_iters: int, profile=None,
         fail(f"host fallbacks on a healthy card: {st.host_fallbacks} / "
              f"{ost.host_fallbacks}")
     if measured:
-        _measured_chat(cfg, params, res, profile)
+        _measured_chat(cfg, params, res)
+    if int8:
+        _int8_chat(cfg, params, "cuda")
     _, _, _, _, _, traced = chat_run(cfg, params, chat_config(cfg, "cuda"),
                                      trace_iters=trace_iters)
     prof, twall = traced
@@ -1696,20 +1915,333 @@ def _chunked_published(cfg, trace_iters: int, profile=None,
     return launches
 
 
-def phase_serving_chunked(profile=None) -> dict:
-    """The reference's default serving configuration on llama3.1-8b (32
-    layers) and the dense-FFN Jamba at published width, cut to one period
-    (8 layers: 7 Mamba, attention at 3) to save run time: llama's
-    features-off run alone takes ~1500 iterations, its host-tier turns
-    decoding at 33 iterations per token.  llama also runs the traffic on
-    the measured profile (``profile``, the profile phase's cache)."""
+def phase_serving_chunked() -> dict:
+    """The reference's default serving configuration on llama3.1-8b and
+    the dense-FFN Jamba at published width, cut to save run time: llama
+    to 16 layers (32 before serving-moe needed the room: at 32 its
+    features-off run took ~1500 iterations, its host-tier turns decoding
+    at 33 iterations per token), Jamba to one period (8 layers: 7 Mamba,
+    attention at 3).  llama also runs the traffic on a measured profile
+    taken at engine startup, and with the int8 host pool without and with
+    cold-page compression."""
+    import dataclasses
     from repro_torch.configs import get_config
-    log("  -- llama3.1-8b")
-    counts = _chunked_published(get_config("llama3.1-8b"), trace_iters=12,
-                                profile=profile, measured=True)
+    llama = dataclasses.replace(get_config("llama3.1-8b"),
+                                num_layers=CHAT["llama_layers"],
+                                name=f"llama3.1-8b-{CHAT['llama_layers']}L")
+    log(f"  -- llama3.1-8b, {llama.num_layers} layers")
+    counts = _chunked_published(llama, trace_iters=12, measured=True,
+                                int8=True)
     log("  -- Jamba-1.5-Large, dense FFN, 8 layers")
     hyb = _chunked_published(hybrid_config(num_layers=8), trace_iters=12)
     return {name: counts[name] + hyb[name] for name in counts}
+
+
+# ---------------------------------------------------------------------------
+# serving-moe: deepseek-moe-16b with the host tier in fp32 and in int8
+# ---------------------------------------------------------------------------
+
+
+def moe_pool_pages(cfg) -> int:
+    """Four host residents: 128 + 16 tokens, 5 pages per attention layer."""
+    m = MOE_SERVE
+    per = -(-(m["prompt_len"] + m["output_len"]) // m["page_size"])
+    return cfg.num_attn_layers * m["host_slots"] * per
+
+
+def moe_config(cfg, device: str, **kw):
+    """Whole-prompt bucketed prefill, no tier moves or prefix cache (the
+    serving phase's path): every run prefills the same buckets (six
+    prompts, then two), so the capacity path drops the same assignments in
+    both runs and an int8 run differs from the fp32 one by its host tier
+    alone.  A chunk's contents follow Algorithm 1's budgets, which follow
+    measured step times, and its padded positions take expert capacity
+    (ROADMAP queue 3)."""
+    from repro_torch.serving import ServerConfig
+    m = MOE_SERVE
+    return ServerConfig(device_slots=m["device_slots"],
+                        host_slots=m["host_slots"], cache_len=m["cache_len"],
+                        page_size=m["page_size"],
+                        host_pool_pages=moe_pool_pages(cfg), device=device,
+                        perf_model="analytic", chunk_tokens=0,
+                        **FEATURES_OFF, **kw)
+
+
+def check_moe_attention(gen) -> None:
+    """Both attention kernels against their plain versions at
+    deepseek-moe-16b's head geometry (MHA: group 1, head_dim 128), fp32
+    and bf16: decode over the 2 device rows, the 6 x 64 chunk."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    m = MOE_SERVE
+    h, kv, d, s = m["heads"], m["kv_heads"], m["head_dim"], m["cache_len"]
+    b, cb = m["device_slots"], m["device_slots"] + m["host_slots"]
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        name = dtype_name(dt)
+        q = _randn(gen, (b, h, d), dt, "cuda")
+        k = _randn(gen, (b, s, kv, d), dt, "cuda")
+        v = _randn(gen, (b, s, kv, d), dt, "cuda")
+        lengths = torch.tensor([m["prompt_len"] + 1, s], dtype=torch.int32,
+                               device="cuda")
+        err, ok = close(decode_attention_cuda(q, k, v, lengths),
+                        ref.decode_attention_ref(q, k, v, lengths),
+                        TOL["decode", name])
+        errs.append(f"decode {name} {err:.2e}")
+        if not ok:
+            fail(f"decode attention at H{h} KV{kv} D{d} {name}: err {err}")
+        q = _randn(gen, (cb, 64, h, d), dt, "cuda")
+        k = _randn(gen, (cb, s, kv, d), dt, "cuda")
+        v = _randn(gen, (cb, s, kv, d), dt, "cuda")
+        off = torch.linspace(0, s - 64, cb, device="cuda").round().to(
+            torch.int32)
+        err, ok = close(prefill_attention_cuda(q, k, v, None, off),
+                        ref.prefill_attention_ref(q, k, v, None, off),
+                        TOL["prefill", name])
+        errs.append(f"chunk {name} {err:.2e}")
+        if not ok:
+            fail(f"prefill attention at H{h} KV{kv} D{d} {name}: err {err}")
+    log(f"  both attention kernels at H{h} KV{kv} D{d} (group 1) against "
+        f"their plain versions: max_abs_err {', '.join(errs)}")
+
+
+def _moe_run(cfg, params, scfg, prompts, out_len: int) -> dict:
+    """One closed-loop run of the traffic through ``InferenceServer``:
+    streams, per-token (top-2 gap, top logit) and logit rows keyed by
+    (request index, token index), the stats, the MoE dispatch counts and
+    the pool's byte accounting."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serving import InferenceServer, Request
+    with _Watch(scfg.device, keep_rows=True) as watch, \
+            InferenceServer(cfg, params, scfg) as server:
+        handles = [server.submit(Request(prompt=list(p),
+                                         max_new_tokens=out_len))
+                   for p in prompts]
+        moe.COUNTS.reset()
+        t0 = time.perf_counter()
+        server.run_until_idle()
+        if scfg.device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = moe.COUNTS.snapshot()
+        stats = server.stats
+        pool = server.engine.executor.pool
+        whole = check_pool(server.engine)
+        per_token = pool.page_bytes * cfg.num_attn_layers / pool.page_size
+    if any(h.failed or len(h.output) != out_len for h in handles):
+        fail(f"{scfg.host_kv_dtype} run: a request did not finish with "
+             f"{out_len} tokens")
+    if bool(watch.nan):
+        fail(f"{scfg.host_kv_dtype} run: a logit was NaN")
+    margins, rows = watch.margins(), watch.logit_rows()
+    ids = [h.request_id for h in handles]
+    outs = {i: list(h.output) for i, h in enumerate(handles)}
+    return dict(
+        outs=outs, stats=stats, wall=wall, counts=counts, pool=whole,
+        bytes_per_token=per_token, dtype=watch.dtype,
+        margins={i: [margins.get((rid, j)) for j in range(len(outs[i]))]
+                 for i, rid in enumerate(ids)},
+        rows={(i, j): rows[(rid, j)] for i, rid in enumerate(ids)
+              for j in range(len(outs[i])) if (rid, j) in rows})
+
+
+def logit_drift(fp: dict, q: dict) -> dict:
+    """Token index -> the largest |int8 - fp32| logit difference over the
+    requests whose two streams agree before that token (a token where they
+    part still counts; what follows it is not comparable)."""
+    import numpy as np
+    by_j = {}
+    for i, a in fp["outs"].items():
+        b = q["outs"][i]
+        for j in range(min(len(a), len(b))):
+            ra, rb = fp["rows"].get((i, j)), q["rows"].get((i, j))
+            if ra is not None and rb is not None:
+                by_j[j] = max(by_j.get(j, 0.0), float(np.abs(ra - rb).max()))
+            if a[j] != b[j]:
+                break
+    return by_j
+
+
+def _serve_moe(cfg, params, device: str, traced_iters: int,
+               wrappers=None) -> dict:
+    """MOE_SERVE's traffic on ``cfg`` (``moe_config``: the analytic perf
+    model), once with the fp32 host pool and once with the int8 pool and
+    cold-page compression; the int8 run is held to the fp32 run as the
+    reference holds int8: streams equal up to top-2 ties of two logit
+    ULPs, and, on a dense-FFN stack, every logit within the reference's
+    0.75 drift envelope.  On an MoE stack the drift is printed only: a
+    near-tied expert choice that the int8 error flips moves the logits by
+    more than the envelope the reference set on its reduced models, in
+    the reference as in the port (``tools/moe_drift_cpu.py`` runs both on
+    this traffic at d_model 512).  Every host owner decodes in every
+    iteration, so the cold sweep, which skips the live cohort, compresses
+    nothing here (``_int8_chat`` runs it).
+    ``wrappers``' launch counts are zeroed just before the fp32 run and
+    read just after the int8 run."""
+    import numpy as np
+    import torch
+    m = MOE_SERVE
+    out_len = m["output_len"]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, m["prompt_len"]).tolist()
+               for _ in range(m["requests"])]
+    configs = {"fp32": moe_config(cfg, device),
+               "int8": moe_config(
+                   cfg, device, host_kv_dtype="int8",
+                   cold_page_compress_after=m["compress_after"])}
+    # warm-up: one short request through its own server, not measured
+    _serve_once(cfg, params, configs["fp32"], prompts[:1], 2)
+    for fn in (wrappers or {}).values():
+        fn.launches = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs = {label: _moe_run(cfg, params, scfg, prompts, out_len)
+            for label, scfg in configs.items()}
+    launches = {name: fn.launches for name, fn in (wrappers or {}).items()}
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    n_tok = m["requests"] * out_len
+    for label, r in runs.items():
+        st, wall, c = r["stats"], r["wall"], r["counts"]
+        log(f"  {label} host pool: {st.iterations} iterations in {wall:.3f} "
+            f"s ({st.iterations / wall:.2f}/s), {n_tok / wall:.2f} output "
+            f"tokens/s (device {st.device_tokens}, host {st.host_tokens} "
+            f"decoded); TTFT p50 {st.ttft_p50 * 1e3:.1f} ms; ITL p50 "
+            f"{st.itl_p50 * 1e3:.1f} ms; host wait "
+            f"{1e3 * st.host_wait_time / st.iterations:.3f} ms per iteration "
+            f"(host busy {st.host_busy_time:.3f} s); host fallbacks "
+            f"{st.host_fallbacks}; strategies {st.strategy_counts}; "
+            f"migrations {st.migrations}, prefix hits {st.prefix_hits} "
+            f"[{CARD}]")
+        log(f"  {label} pool: {r['bytes_per_token']:.0f} B per token "
+            f"({st.host_kv_dtype_bytes} B per element), bytes hot "
+            f"{st.host_pool_hot_bytes} / compressed "
+            f"{st.host_pool_compressed_bytes} / free "
+            f"{st.host_pool_free_bytes}; pages compressed "
+            f"{st.host_pages_compressed}, decompressed "
+            f"{st.host_pages_decompressed} (compressed/raw EWMA "
+            f"{st.host_compressed_ratio_ewma}); at the end: {r['pool']}")
+        per_it = [c[path] / st.iterations for path in ("dropless",
+                                                       "capacity")]
+        log(f"  {label} MoE dispatch: {c['dropless']} dropless and "
+            f"{c['capacity']} capacity calls ({per_it[0]:.2f} / "
+            f"{per_it[1]:.2f} per iteration), {c['dropped']} assignments "
+            "dropped at capacity")
+    fp, q = runs["fp32"], runs["int8"]
+    same, flips, other = compare_streams(fp["outs"], q["outs"],
+                                         fp["margins"], q["margins"],
+                                         fp["dtype"])
+    drift = logit_drift(fp, q)
+    worst = max(drift.values(), default=0.0)
+    ratio = fp["bytes_per_token"] / q["bytes_per_token"]
+    moe_stack = cfg.moe is not None
+    gap = min((g[0] for ms in fp["margins"].values() for g in ms
+               if g is not None), default=float("nan"))
+    log(f"  int8 against fp32: {same} of {len(fp['outs'])} streams "
+        f"identical" + ("" if not flips else "; parted at a tie: "
+                        + "; ".join(flips))
+        + f"; logit drift per decode step (token index: max |int8 - fp32|)"
+        f" {{{', '.join(f'{j}: {x:.4f}' for j, x in sorted(drift.items()))}"
+        f"}}, max {worst:.4f} (envelope 0.75"
+        + (", held on dense-FFN stacks" if moe_stack else "")
+        + f"); smallest fp32 top-2 gap "
+        f"{gap:.3e}; host bytes per token fp32 / int8 = {ratio:.3f}; peak "
+        f"device memory {peak:.2f} GiB; launches {launches} [{CARD}]")
+    if other:
+        fail("int8 streams part from fp32 by more than two logit ULPs: "
+             + "; ".join(other))
+    if worst <= 0.0:
+        fail("the int8 run's logits equal the fp32 run's: the host tier "
+             "never read int8")
+    if not moe_stack and worst >= 0.75:
+        fail(f"int8 logit drift {worst} outside the envelope 0.75")
+    if not 3.9 < ratio < 4.0:
+        fail(f"int8 pool stores {ratio:.3f}x fewer bytes per token, not ~4x")
+    for label, r in runs.items():
+        st, c = r["stats"], r["counts"]
+        if st.host_fallbacks:
+            fail(f"{label}: {st.host_fallbacks} host fallbacks on a healthy "
+                 "run")
+        if st.host_tokens <= 0:
+            fail(f"{label}: no token was decoded on the host tier")
+        if moe_stack and (c["dropless"] <= 0 or c["capacity"] <= 0):
+            fail(f"{label}: the MoE ran only one of its paths: {c}")
+    if q["stats"].host_kv_dtype_bytes != 1 \
+            or fp["stats"].host_kv_dtype_bytes != 4:
+        fail("the pools did not store int8 and fp32")
+    if wrappers:
+        # both runs: a decode per device-row iteration, a prefill per
+        # admission bucket (six prompts, then two)
+        iters = 2 * (out_len - 1)
+        need = {"decode_attention": cfg.num_attn_layers * iters,
+                "prefill_attention": cfg.num_attn_layers * 2 * 2}
+        for name, n in need.items():
+            if launches[name] < n:
+                fail(f"{name} launched {launches[name]} times over the two "
+                     f"runs; they need at least {n}")
+    if traced_iters:
+        share, ms_iter, per_kernel, _ = _traced_window(
+            cfg, params, configs["int8"], prompts, out_len, traced_iters)
+        log(f"  traced window (int8 pool, {traced_iters} iterations, "
+            f"separate run): {ms_iter:.2f} ms per iteration, device busy "
+            f"{100 * share:.1f}% of wall (idle {100 * (1 - share):.1f}%); "
+            "top kernels by device time:")
+        for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {ms:8.3f} ms/iter  {key[:100]}")
+        port = {name: sum(ms for key, ms in per_kernel.items() if tag in key)
+                for name, tag in PORT_KERNELS.items()}
+        log("  the port's kernels, device ms per iteration: "
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in port.items()))
+    return launches
+
+
+def phase_serving_moe() -> dict:
+    """deepseek-moe-16b at published width (28 layers, 64 routed experts
+    top-6 + 2 shared, 16.9 B parameters, 33.8 GB in bf16), random weights
+    from seed 0: both attention kernels held to their plain versions at
+    its head geometry, then ``_serve_moe``; then ``_serve_moe`` on
+    llama3.1-8b cut to 8 layers, which holds the int8 drift envelope."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    gc.collect()            # earlier phases' engines hold reference cycles
+    torch.cuda.empty_cache()
+    check_moe_attention(torch.Generator(device="cuda").manual_seed(0))
+    cfg = get_config("deepseek-moe-16b")
+    e = cfg.moe
+    log(f"  {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, {e.num_experts} "
+        f"experts top-{e.top_k} of width {e.expert_ffn_dim} + "
+        f"{e.num_shared_experts} shared, vocab {cfg.vocab_size}, "
+        f"{cfg.num_layers} layers, {cfg.param_dtype}, "
+        f"{cfg.param_count() / 1e9:.2f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.2f} B active); host pool "
+        f"{moe_pool_pages(cfg)} pages")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  random weights from torch.Generator(seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    launches = _serve_moe(cfg, params, "cuda", traced_iters=12,
+                          wrappers=_kernel_wrappers())
+    del params
+    torch.cuda.empty_cache()
+    # the drift envelope's control: the same traffic, pools and checks on
+    # a dense-FFN stack, where no expert choice can flip
+    dense = dataclasses.replace(get_config("llama3.1-8b"), num_layers=8,
+                                name="llama3.1-8b-8L")
+    log(f"  control: {dense.name} at published width, dense FFN, "
+        f"{dense.num_layers} layers")
+    _serve_moe(dense, init_params(dense, seed=0, device="cuda"), "cuda",
+               traced_iters=0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2014,7 +2546,8 @@ def _serve_cli(*extra: str) -> str:
 def phase_cli() -> None:
     """The serve CLI with its defaults (the measured perf model, profiled
     at startup), then with one injected host-worker death, which the
-    watchdog must absorb."""
+    watchdog must absorb, then an MoE arch (reduced) on the analytic perf
+    model with the int8 host pool."""
     import re
     out = _serve_cli()
     if "perf_model=measured" not in out:
@@ -2024,6 +2557,13 @@ def phase_cli() -> None:
     if m is None or int(m.group(1)) < 1:
         fail("launch.serve --fault-plan host_error@2 printed no host "
              "fallback")
+    out = _serve_cli("--arch", "deepseek-moe-16b", "--perf-model",
+                     "analytic", "--host-kv-dtype", "int8")
+    m = re.search(r"tokens: device=(\d+) host=(\d+)", out)
+    if "host pool (int8, 1 B per element)" not in out or m is None \
+            or int(m.group(2)) < 1:
+        fail("launch.serve --arch deepseek-moe-16b --host-kv-dtype int8 "
+             "decoded no token on an int8 host pool")
 
 
 # ---------------------------------------------------------------------------
@@ -2031,7 +2571,7 @@ def phase_cli() -> None:
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "kernels", "profile", "exactness", "serving",
-          "serving-hybrid", "faults", "serving-chunked", "cli")
+          "serving-hybrid", "faults", "serving-chunked", "serving-moe", "cli")
 
 
 def main() -> int:
@@ -2060,10 +2600,9 @@ def main() -> int:
         log("== kernels against their plain versions")
         records = phase_kernels()
     launches = {}       # path -> kernel -> launches over its measured run
-    profile = None
     if "profile" in phases:
         log("== profile: OfflineProfiler on llama3.1-8b at published width")
-        profile, launches["profile"] = phase_profile()
+        _, launches["profile"] = phase_profile()
     if "exactness" in phases:
         log("== exactness at a reduced size")
         phase_exactness()
@@ -2081,7 +2620,11 @@ def main() -> int:
     if "serving-chunked" in phases:
         log("== serving with the reference's defaults (chunked prefill, "
             "prefix cache, migration, preemption): multi-turn chat")
-        launches["serving-chunked"] = phase_serving_chunked(profile)
+        launches["serving-chunked"] = phase_serving_chunked()
+    if "serving-moe" in phases:
+        log("== serving deepseek-moe-16b at published width, the host tier "
+            "in fp32 and in int8")
+        launches["serving-moe"] = phase_serving_moe()
     if "cli" in phases:
         log("== python -m repro_torch.launch.serve")
         phase_cli()

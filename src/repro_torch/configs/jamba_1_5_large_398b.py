@@ -1,11 +1,10 @@
 """Jamba-1.5-Large (398B) — Mamba+attention 1:7, MoE 16e top-2.
 [arXiv:2403.19887; hf]
 
-One attention layer per 8-layer period (9 KV-bearing layers of 72).
-APEX offloads the attention layers' KV; the deferred-sync window spans
-the 7 Mamba layers between attention layers.  The port runs it with
-dense FFNs only (``ffn_kind=FFNKind.DENSE, moe=None``) until the MoE FFN
-is ported.
+One attention layer per 8-layer period (9 KV-bearing layers of 72), an
+MoE FFN on every second entry.  APEX offloads the attention layers' KV;
+the deferred-sync window spans the 7 Mamba layers between attention
+layers.
 """
 from repro_torch.models.config import (BlockKind, FFNKind, MambaConfig,
                                        MoEConfig, ModelConfig)

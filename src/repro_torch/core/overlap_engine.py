@@ -439,22 +439,29 @@ class HostExecutor:
                 self._release_pinned(staged)
                 return
             self.pool.append_rows(job.request_ids, li, job.positions, k, v)
+        # chains must hold physical pages before they are snapshotted: the
+        # write above rehydrated the tail page, an earlier one may be cold
+        if self.pool.has_compressed:
+            for rid in job.request_ids:
+                self.pool.ensure_hot(rid)
         chains = [self.pool.page_tables[(rid, li)] for rid in job.request_ids]
         pt = np.zeros((n, max(len(c) for c in chains)), np.int32)
         for i, c in enumerate(chains):
             pt[i, :len(c)] = c
         lengths = job.positions.astype(np.int32) + 1
+        scales = self.pool.scales
         out = self._out_buffer(q.shape)
         if self._shards is None or n < 2:
             host_paged_attention_numpy(q, self.pool.pages, pt, lengths,
-                                       page_size=self.page_size, out=out)
+                                       page_size=self.page_size,
+                                       scales=scales, out=out)
         else:
             bounds = np.linspace(0, n, min(self.workers, n) + 1).astype(int)
             futs = [
                 self._shards.submit(
                     host_paged_attention_numpy, q[a:b], self.pool.pages,
                     pt[a:b], lengths[a:b], page_size=self.page_size,
-                    out=out[a:b])
+                    scales=scales, out=out[a:b])
                 for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
             for f in futs:
                 f.result()

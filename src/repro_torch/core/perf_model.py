@@ -15,10 +15,11 @@ Two sources yield the ``Timings`` the scheduler consumes:
 ``PerfModelProvider`` resolves a spec string into either; at serving time
 an ``OnlineCalibrator`` corrects the result from observed iteration times.
 
-Port of ``repro/core/perf_model.py`` without the quantized host tier's
-pricing: the fp32 host pool is priced at the device's KV bytes per
-position, as the reference prices its fp32 pool.  A saved profile has the
-reference's JSON format, so either package loads the other's.
+Port of ``repro/core/perf_model.py``.  The host tier is priced at the
+bytes its pool stores per position: the device's for the fp32 pool, one
+byte per element plus a K and a V fp32 scale for the int8 pool.  A saved
+profile has the reference's JSON format, so either package loads the
+other's.
 """
 from __future__ import annotations
 
@@ -83,12 +84,34 @@ class ModelCosts:
     bytes_per_param: int = 2
     state_bytes_per_row: int = 0  # recurrent (SSM/xLSTM) state per request,
     #                               all layers -- 0 for attention-only stacks
+    # bytes per cached position as the host tier stores them -- what
+    # t_catt (host attention is bandwidth bound on them), t_migrate (they
+    # cross the link) and n_c charge; 0 means "as the device fields" (an
+    # unquantized pool); from_config(host_kv_bytes_per_el=1) prices the
+    # int8 pool (one byte per element plus a K and a V fp32 scale)
+    host_kv_bytes_per_pos: int = 0
+    host_kv_bytes_per_pos_layer: int = 0
+
+    def __post_init__(self) -> None:
+        if self.host_kv_bytes_per_pos == 0:
+            object.__setattr__(self, "host_kv_bytes_per_pos",
+                               self.kv_bytes_per_pos)
+        if self.host_kv_bytes_per_pos_layer == 0:
+            object.__setattr__(self, "host_kv_bytes_per_pos_layer",
+                               self.kv_bytes_per_pos_layer)
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, bytes_per_param: int = 2,
-                    kv_bytes_per_el: int = 2) -> "ModelCosts":
+                    kv_bytes_per_el: int = 2,
+                    host_kv_bytes_per_el: Optional[int] = None
+                    ) -> "ModelCosts":
         head = cfg.resolved_head_dim
         kv_per_layer = 2 * cfg.num_kv_heads * head * kv_bytes_per_el
+        host_per_layer = 0
+        if host_kv_bytes_per_el is not None:
+            host_per_layer = 2 * cfg.num_kv_heads * head * host_kv_bytes_per_el
+            if host_kv_bytes_per_el < kv_bytes_per_el:   # quantized: scales
+                host_per_layer += 2 * 4
         # linear params = everything except the embedding table (decode
         # touches one row): attention projections + FFN + head
         linear = max(cfg.active_param_count() - cfg.vocab_size * cfg.d_model,
@@ -101,6 +124,8 @@ class ModelCosts:
             num_attn_layers=max(cfg.num_attn_layers, 1),
             bytes_per_param=bytes_per_param,
             state_bytes_per_row=_recurrent_state_bytes(cfg),
+            host_kv_bytes_per_pos=host_per_layer * cfg.num_attn_layers,
+            host_kv_bytes_per_pos_layer=host_per_layer,
         )
 
 
@@ -173,11 +198,12 @@ class AnalyticPerfModel:
 
     def t_catt(self, batch: int, context: float,
                layers: Optional[int] = None) -> float:
-        """Host attention over ``layers`` (default: all attention layers)."""
+        """Host attention over ``layers`` (default: all attention layers),
+        at the host tier's stored bytes per position."""
         p = self.platform
         n_layers = self.costs.num_attn_layers if layers is None else layers
         kv_bytes = (batch * max(context, 1.0)
-                    * self.costs.kv_bytes_per_pos_layer * n_layers)
+                    * self.costs.host_kv_bytes_per_pos_layer * n_layers)
         return kv_bytes / p.host_bw + p.kernel_overhead
 
     def t_transfer(self, n_bytes: float) -> float:
@@ -186,10 +212,11 @@ class AnalyticPerfModel:
 
     def t_migrate(self, n_tokens: int) -> float:
         """Tier-move cost: a request's cached KV span over every
-        attention layer plus its recurrent-state row (hybrids) crossing
-        the device<->host link once -- charged against rebalance and
-        preemption decisions by the ``TierPlacer``."""
-        return self.t_transfer(max(n_tokens, 0) * self.costs.kv_bytes_per_pos
+        attention layer (in its host-stored form) plus its recurrent-state
+        row (hybrids) crossing the device<->host link once -- charged
+        against rebalance and preemption decisions by the ``TierPlacer``."""
+        return self.t_transfer(max(n_tokens, 0)
+                               * self.costs.host_kv_bytes_per_pos
                                + self.costs.state_bytes_per_row)
 
     def t_recompute(self, prompt_tokens: int, emitted_tokens: int = 0
@@ -209,8 +236,10 @@ class AnalyticPerfModel:
         return self.platform.device_bw / max(self.costs.kv_bytes_per_pos, 1)
 
     def n_c(self, context: float) -> float:
-        """Host attention rate: KV positions scanned per second."""
-        return self.platform.host_bw / max(self.costs.kv_bytes_per_pos, 1)
+        """Host attention rate at the stored element size: KV positions
+        scanned per second."""
+        return self.platform.host_bw / max(self.costs.host_kv_bytes_per_pos,
+                                           1)
 
     def timings(self, decode_batch: int, mean_context: float,
                 prefill_tokens: int = 0) -> Timings:
@@ -371,21 +400,38 @@ class TablePerfModel:
                    profile_grid=payload.get("profile_grid"))
 
 
-def analytic_model(platform: str, cfg: ModelConfig) -> AnalyticPerfModel:
+HOST_KV_EL_BYTES: Dict[str, int] = {"fp32": 4, "int8": 1}
+
+
+def host_kv_el_bytes(host_kv_dtype: Optional[str]) -> Optional[int]:
+    """Stored bytes per element of a host-pool dtype, or None for fp32
+    (which keeps the ``ModelCosts`` host fields at the device's)."""
+    if host_kv_dtype in (None, "fp32"):
+        return None
+    return HOST_KV_EL_BYTES[host_kv_dtype]
+
+
+def analytic_model(platform: str, cfg: ModelConfig,
+                   host_kv_dtype: str = "fp32") -> AnalyticPerfModel:
     if platform not in PLATFORMS:
         raise ValueError(f"unknown platform {platform!r}; "
                          f"have {sorted(PLATFORMS)}")
-    return AnalyticPerfModel(PLATFORMS[platform], ModelCosts.from_config(cfg))
+    return AnalyticPerfModel(PLATFORMS[platform], ModelCosts.from_config(
+        cfg, host_kv_bytes_per_el=host_kv_el_bytes(host_kv_dtype)))
 
 
-def model_fingerprint(cfg: ModelConfig) -> str:
+def model_fingerprint(cfg: ModelConfig, host_kv_dtype: str = "fp32") -> str:
     """Identity of the model shape a measured profile belongs to; host
     independent (the same model profiled on another machine is a fair
-    reuse, another model's tables are not).  The reference's string for
-    an fp32 host tier."""
+    reuse, another model's tables are not).  A quantized host tier adds a
+    suffix: its catt table is measured at the stored dtype.  The
+    reference's string."""
     costs = ModelCosts.from_config(cfg)
-    return (f"{cfg.name}:d{cfg.d_model}:L{cfg.num_layers}"
+    base = (f"{cfg.name}:d{cfg.d_model}:L{cfg.num_layers}"
             f":attn{costs.num_attn_layers}:kv{costs.kv_bytes_per_pos}")
+    if host_kv_dtype not in (None, "fp32"):
+        base += f":hostkv-{host_kv_dtype}"
+    return base
 
 
 # the grid the engine profiles at startup: smaller than OfflineProfiler's
@@ -417,19 +463,21 @@ class PerfModelProvider:
     profile_cache: Optional[str] = None
     profile_grid: Optional[Dict[str, Tuple[int, ...]]] = None
     device: str = "cuda"
+    host_kv_dtype: str = "fp32"
 
     def resolve(self, spec: str):
         spec = (spec or "analytic").strip()
         if spec == "analytic":
-            return analytic_model(self.platform, self.cfg)
+            return analytic_model(self.platform, self.cfg, self.host_kv_dtype)
         if spec.startswith("analytic:"):
-            return analytic_model(spec.split(":", 1)[1], self.cfg)
+            return analytic_model(spec.split(":", 1)[1], self.cfg,
+                                  self.host_kv_dtype)
         if spec.startswith("file:"):
             path = spec.split(":", 1)[1]
             if not os.path.exists(path):
                 raise ValueError(f"perf-model profile not found: {path!r}")
             model = TablePerfModel.load(path)
-            want = model_fingerprint(self.cfg)
+            want = model_fingerprint(self.cfg, self.host_kv_dtype)
             if model.fingerprint is not None and model.fingerprint != want:
                 raise ValueError(
                     f"profile {path!r} was measured for "
@@ -438,14 +486,17 @@ class PerfModelProvider:
         if spec == "measured":
             if self.profile_cache and os.path.exists(self.profile_cache):
                 model = TablePerfModel.load(self.profile_cache)
-                if model.fingerprint == model_fingerprint(self.cfg) \
+                if model.fingerprint == model_fingerprint(
+                        self.cfg, self.host_kv_dtype) \
                         and self._grid_matches(model):
                     return model
                 # stale (another model, no fingerprint, or not measured
                 # at the requested grid): profile again and overwrite
             from repro_torch.core.profiler import OfflineProfiler
             grid = dict(self.profile_grid or STARTUP_PROFILE_GRID)
-            model = OfflineProfiler(self.cfg, device=self.device).run(**grid)
+            model = OfflineProfiler(self.cfg, device=self.device,
+                                    host_kv_dtype=self.host_kv_dtype
+                                    ).run(**grid)
             if self.profile_cache:
                 model.save(self.profile_cache)
             return model
@@ -467,11 +518,12 @@ class PerfModelProvider:
 def resolve_perf_model(spec: str, cfg: ModelConfig, *, platform: str = "h100",
                        profile_cache: Optional[str] = None,
                        profile_grid: Optional[Dict[str, Tuple[int, ...]]]
-                       = None, device: str = "cuda"):
+                       = None, device: str = "cuda",
+                       host_kv_dtype: str = "fp32"):
     return PerfModelProvider(cfg, platform=platform,
                              profile_cache=profile_cache,
-                             profile_grid=profile_grid,
-                             device=device).resolve(spec)
+                             profile_grid=profile_grid, device=device,
+                             host_kv_dtype=host_kv_dtype).resolve(spec)
 
 
 class OnlineCalibrator:

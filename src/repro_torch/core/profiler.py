@@ -13,7 +13,11 @@ same code times the plain versions.
 
 Port of ``repro/core/profiler.py``: the same tables, grid and scaling by
 depth (one layer measured, multiplied by the stack's layers or attention
-layers).
+layers), and the int8 host pool's ``catt`` table measured on int8 pages
+through the fused-dequant path.  Like the reference, it takes one
+layer's weights from pattern entry 0 and prices its FFN as a dense MLP,
+so a stack whose entry 0 has an MoE FFN cannot be profiled (the
+reference fails there with ``KeyError: 'w_gate'``); the port says so.
 """
 from __future__ import annotations
 
@@ -26,11 +30,11 @@ import torch
 
 from repro_torch.core.overlap_engine import to_device
 from repro_torch.core.perf_model import (ModelCosts, TablePerfModel,
-                                         model_fingerprint)
+                                         host_kv_el_bytes, model_fingerprint)
 from repro_torch.kernels import ops
 from repro_torch.kernels.host_paged_attention import \
     host_paged_attention_numpy
-from repro_torch.models.config import BlockKind, ModelConfig
+from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.models.layers import mlp, qkv_project, rope_frequencies
 from repro_torch.models.transformer import layer_params, stack_init
 
@@ -41,10 +45,19 @@ class OfflineProfiler:
     """Profiles one model config on ``device`` and the host's numpy tier."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", host_kv_dtype: str = "fp32") -> None:
+        if cfg.ffn_kind_for_entry(0) == FFNKind.MOE:
+            raise NotImplementedError(
+                f"{cfg.name}: OfflineProfiler prices one layer's FFN as a "
+                "dense MLP, and this stack's first entry has an MoE FFN "
+                "(the reference's profiler fails there too, with KeyError "
+                "'w_gate'; ROADMAP queue 3); serve it with --perf-model "
+                "analytic or file:<path>")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.costs = ModelCosts.from_config(cfg)
+        self.host_kv_dtype = host_kv_dtype
+        self.costs = ModelCosts.from_config(
+            cfg, host_kv_bytes_per_el=host_kv_el_bytes(host_kv_dtype))
         self.dtype = getattr(torch, cfg.compute_dtype)
         # one attention layer's weights are enough: scaled by depth below
         one = dataclasses.replace(cfg, block_pattern=(BlockKind.ATTN,),
@@ -125,9 +138,12 @@ class OfflineProfiler:
     def profile_catt(self, kv_positions: Sequence[int], context: int = 1024,
                      page_size: int = 64) -> Table:
         """Host paged attention against KV positions (one layer, on the
-        calling thread), scaled to all attention layers."""
+        calling thread), scaled to all attention layers -- at the pool's
+        stored dtype (int8 pages and the fused-dequant path when the host
+        tier is quantized)."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
+        quant = self.host_kv_dtype == "int8"
         out = []
         for total in kv_positions:
             ctx = min(context, total)
@@ -135,7 +151,9 @@ class OfflineProfiler:
             pages_per = -(-ctx // page_size)
             npages = batch * pages_per
             pages = np.ones((2, npages, page_size, cfg.num_kv_heads, hd),
-                            np.float32)
+                            np.int8 if quant else np.float32)
+            scales = (np.ones((2, npages, page_size), np.float32)
+                      if quant else None)
             pt = np.arange(npages, dtype=np.int32).reshape(batch, pages_per)
             lengths = np.full((batch,), ctx, np.int32)
             q = np.ones((batch, cfg.num_heads, hd), np.float32)
@@ -143,7 +161,8 @@ class OfflineProfiler:
             t0 = time.perf_counter()
             for _ in range(iters):
                 host_paged_attention_numpy(q, pages, pt, lengths,
-                                           page_size=page_size)
+                                           page_size=page_size,
+                                           scales=scales)
             t = (time.perf_counter() - t0) / iters
             out.append((float(batch * ctx),
                         t * self.costs.num_attn_layers))
@@ -209,7 +228,10 @@ class OfflineProfiler:
                               num_attn_layers=self.costs.num_attn_layers,
                               state_bytes_per_row=self.costs
                               .state_bytes_per_row,
-                              fingerprint=model_fingerprint(self.cfg),
+                              host_kv_bytes_per_pos=self.costs
+                              .host_kv_bytes_per_pos,
+                              fingerprint=model_fingerprint(
+                                  self.cfg, self.host_kv_dtype),
                               profile_grid=dict(
                                   token_counts=list(token_counts),
                                   kv_positions=list(kv_positions),

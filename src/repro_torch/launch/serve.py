@@ -10,7 +10,9 @@ and ``--chunk-tokens 0`` turn them off.  Algorithm 1 runs on a measured
 profile of the port's own ops by default (``--perf-model measured``:
 ``OfflineProfiler`` at startup, reused from ``--profile-cache`` when it
 holds this model's profile).  ``--fault-plan`` injects deterministic
-faults.  By default the architecture is reduced to a small geometry;
+faults.  ``--host-kv-dtype int8`` stores the host tier's K/V in int8 and
+``--cold-page-compress-after S`` compresses idle host pages.  By default
+the architecture is reduced to a small geometry;
 ``--published`` serves it at its published width (``--layers`` then cuts
 depth only).  Weights are random, from ``--seed``.
 
@@ -106,6 +108,14 @@ def main() -> None:
                     help="deterministic fault plan, e.g. "
                          "'host_stall@3x2:0.5,pool_alloc@1' (see "
                          "repro_torch.serving.faults)")
+    ap.add_argument("--host-kv-dtype", default="fp32",
+                    choices=["fp32", "int8"],
+                    help="host KV pool storage: int8 stores quantized "
+                         "pages with per-token scales and dequantizes "
+                         "inside the host attention")
+    ap.add_argument("--cold-page-compress-after", type=float, default=0.0,
+                    help="compress a host owner's pages losslessly after "
+                         "this many idle seconds (0 = never)")
     ap.add_argument("--no-stream", action="store_true",
                     help="suppress the per-token stream of request 0")
     ap.add_argument("--device", default="cuda",
@@ -142,6 +152,8 @@ def main() -> None:
         recompute_fallback=not args.no_recompute_fallback,
         host_job_slack=args.host_job_slack, fault_plan=args.fault_plan,
         perf_model=args.perf_model, profile_cache=args.profile_cache,
+        host_kv_dtype=args.host_kv_dtype,
+        cold_page_compress_after=args.cold_page_compress_after,
         workload=None if args.workload in (None, "synthetic")
         else args.workload,
         num_requests=args.requests, arrival_rate=args.arrival_rate,
@@ -209,6 +221,14 @@ def main() -> None:
           f"device={stats.device_occupancy:.2f}/{scfg.device_slots} "
           f"host={stats.host_occupancy:.2f}/{scfg.host_slots}; prefill "
           f"shapes {stats.prefill_compilations}")
+    if scfg.enable_offload:
+        print(f"host pool ({scfg.host_kv_dtype}, "
+              f"{stats.host_kv_dtype_bytes} B per element): hot "
+              f"{stats.host_pool_hot_bytes} B, compressed "
+              f"{stats.host_pool_compressed_bytes} B, free "
+              f"{stats.host_pool_free_bytes} B; pages compressed "
+              f"{stats.host_pages_compressed}, decompressed "
+              f"{stats.host_pages_decompressed}")
     if stats.deadline_misses or stats.deadline_rejections:
         print(f"SLO: {stats.deadline_misses} deadline misses, "
               f"{stats.deadline_rejections} impossible-deadline "

@@ -1,8 +1,8 @@
 """Public model API: init / weight import / prefill (whole, bucketed,
 chunked) / decode, and the fused decode + prefill-chunk iteration.
 
-Causal stacks of attention and Mamba blocks with dense FFNs and token
-inputs; every entry point takes an explicit ``device``.
+Causal stacks of attention and Mamba blocks with dense or MoE FFNs and
+token inputs; every entry point takes an explicit ``device``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Block stack (attention and Mamba entries): init, prefill forward,
-and the APEX unified decode step.
+"""Block stack (attention and Mamba entries, dense or MoE FFNs): init,
+prefill forward, and the APEX unified decode step.
 
 Parameters and decode states carry a leading G (= num_groups) axis, as
 in the reference, so layer = g * period + j; the reference's ``lax.scan``
@@ -23,6 +23,14 @@ window, as their residual.  Attention caches hold the device rows only.
 KV caches and recurrent states are written in place (the reference's
 ``.at[].set`` on donated buffers), so the state passed in is the state
 updated.
+
+An entry's FFN is an MoE (``models.moe``) where
+``cfg.ffn_kind_for_entry(j)`` says so at init (every ``moe_period``-th
+entry), and wherever a ``router`` leaf is present at apply time, in every
+forward: bucketed and chunked prefill, decode and the host rows' ride
+along.  The MoE sees the whole call's tokens, so the capacity path above
+``moe.DROPLESS_TOKEN_THRESHOLD`` tokens routes over a chunk's padded
+positions too, as the reference does.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.models.kv_cache import AttnKV, StackState
 from repro_torch.models.layers import (Params, attention_output, dense_init_,
@@ -66,22 +74,18 @@ class QKVOut(NamedTuple):
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a stack the port cannot run yet,
     naming the ROADMAP item that brings it."""
-    if cfg.ffn_kind == FFNKind.MOE:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP queue 1 "
-            "item 8); dataclasses.replace(cfg, ffn_kind=FFNKind.DENSE, "
-            "moe=None) serves the stack with dense FFNs")
     other = sorted({k.value for k in cfg.block_pattern}
                    - {BlockKind.ATTN.value, BlockKind.MAMBA.value})
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} blocks are not ported yet "
             "(xLSTM, ROADMAP queue 1 item 7)")
-    if cfg.ffn_kind != FFNKind.DENSE or cfg.frontend != "none" \
-            or not cfg.causal:
+    if cfg.ffn_kind not in (FFNKind.DENSE, FFNKind.MOE) \
+            or cfg.frontend != "none" or not cfg.causal:
         raise NotImplementedError(
             f"{cfg.name}: the port runs causal stacks of attention and "
-            "Mamba blocks with dense FFNs and token inputs")
+            "Mamba blocks with dense or MoE FFNs and token inputs (the "
+            "encoder and VLM frontends: ROADMAP queue 1 item 12)")
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +109,7 @@ def stack_init(cfg: ModelConfig, gen: torch.Generator,
         return torch.ones((g, d), dtype=dt, device=device)
 
     out = []
-    for kind in cfg.block_pattern:
+    for j, kind in enumerate(cfg.block_pattern):
         if kind == BlockKind.ATTN:
             p = {"ln1": {"scale": ones()},
                  "attn": {"wq": dense(d, cfg.num_heads * hd),
@@ -117,8 +121,13 @@ def stack_init(cfg: ModelConfig, gen: torch.Generator,
                  "mamba": ssm.mamba_init(cfg.mamba, d, gen, groups=g,
                                          dtype=dt, device=device)}
         p["ln2"] = {"scale": ones()}
-        p["ffn"] = {"w_gate": dense(d, cfg.d_ff), "w_up": dense(d, cfg.d_ff),
-                    "w_down": dense(cfg.d_ff, d)}
+        if cfg.ffn_kind_for_entry(j) == FFNKind.MOE:
+            p["ffn"] = moe.moe_init(d, cfg.moe, gen, groups=g, dtype=dt,
+                                    device=device)
+        else:
+            p["ffn"] = {"w_gate": dense(d, cfg.d_ff),
+                        "w_up": dense(d, cfg.d_ff),
+                        "w_down": dense(cfg.d_ff, d)}
         out.append(p)
     return tuple(out)
 
@@ -158,7 +167,11 @@ def layer_params(blocks: Tuple[Params, ...], j: int, g: int) -> Params:
 
 
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Residual FFN over x (B, T, d); a ``router`` leaf marks an MoE
+    (its load-balance loss is a training term, dropped here)."""
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "router" in p["ffn"]:
+        return x + moe.moe_ffn(p["ffn"], h2, cfg.moe)[0]
     return x + mlp(p["ffn"], h2)
 
 

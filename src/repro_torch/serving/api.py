@@ -93,6 +93,11 @@ class ServerConfig:
     host_breaker_cooldown: float = 1.0
     # sliding window (seconds) of the degradation-ladder level
     degradation_window: float = 5.0
+    # --- host-KV precision and cold-page compression ---------------------
+    # "fp32" | "int8" stored host-pool dtype, and the idle seconds after
+    # which a host owner's pages are compressed (0 = never)
+    host_kv_dtype: str = "fp32"
+    cold_page_compress_after: float = 0.0
     # --- workload --------------------------------------------------------
     workload: Optional[str] = None   # azure-conv | livebench | dolphin-r1 | osc
     num_requests: int = 12

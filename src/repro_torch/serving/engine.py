@@ -126,7 +126,8 @@ class Engine:
             self._calibrator = OnlineCalibrator(resolve_perf_model(
                 self.e.perf_model, cfg, platform=self.e.platform,
                 profile_cache=self.e.profile_cache,
-                profile_grid=self.e.profile_grid, device=str(self.device)))
+                profile_grid=self.e.profile_grid, device=str(self.device),
+                host_kv_dtype=self.e.host_kv_dtype))
             self.stats.perf_model_spec = self.e.perf_model
             self.scheduler = ApexScheduler(
                 self._calibrator, host_min_ratio=self.e.host_min_ratio,
@@ -171,9 +172,11 @@ class Engine:
         self.executor: Optional[HostExecutor] = None
         if self.e.enable_offload:
             self._overlap = OverlapController(cfg)
-            pool = PagedKVPool(self.e.host_pool_pages, self.e.page_size,
-                               cfg.num_attn_layers, cfg.num_kv_heads,
-                               cfg.resolved_head_dim)
+            pool = PagedKVPool(
+                self.e.host_pool_pages, self.e.page_size,
+                cfg.num_attn_layers, cfg.num_kv_heads, cfg.resolved_head_dim,
+                host_kv_dtype=self.e.host_kv_dtype,
+                cold_page_compress_after=self.e.cold_page_compress_after)
             pool.fault_hook = (self.faults.on_pool_alloc
                                if self.faults is not None else None)
             self.executor = HostExecutor(cfg, pool,
@@ -606,6 +609,14 @@ class Engine:
 
     # --- one engine iteration ------------------------------------------------
     def step(self) -> None:
+        if self.executor is not None and self.e.cold_page_compress_after > 0:
+            # before the timed section: compression is pool maintenance,
+            # not iteration work the calibrator should learn from.  The
+            # live cohort is skipped: its jobs read its chains outside the
+            # pool's lock, one layer per iteration, so it is never cold
+            self.executor.pool.maybe_compress_cold(
+                skip=self._cohort.request_ids if self._cohort is not None
+                else ())
         t0 = time.perf_counter()
         if self.faults is not None:
             spike = self.faults.on_engine_step()
@@ -913,9 +924,21 @@ class Engine:
         return self.stats
 
     def sync_host_stats(self) -> None:
-        if self.executor is not None:
-            self.stats.host_busy_time = self.executor.busy_time
-            self.stats.host_transfer_time = self.executor.transfer_time
+        """Copy the host tier's busy split, the pool's byte accounting at
+        its stored dtype and the cold-page counters onto the stats."""
+        if self.executor is None:
+            return
+        self.stats.host_busy_time = self.executor.busy_time
+        self.stats.host_transfer_time = self.executor.transfer_time
+        pool = self.executor.pool
+        b = pool.byte_stats()
+        self.stats.host_pool_hot_bytes = b["hot"]
+        self.stats.host_pool_compressed_bytes = b["compressed"]
+        self.stats.host_pool_free_bytes = b["free"]
+        self.stats.host_kv_dtype_bytes = pool.kv_dtype_bytes
+        self.stats.host_pages_compressed = pool.pages_compressed
+        self.stats.host_pages_decompressed = pool.pages_decompressed
+        self.stats.host_compressed_ratio_ewma = pool.compressed_ratio_ewma
 
     def shutdown(self) -> None:
         if self.executor is not None:

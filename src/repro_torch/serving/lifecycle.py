@@ -22,8 +22,7 @@ tier placer, and the registries of which request is where.
     bookkeeping of tier moves, retirement and latency/SLO accounting.
     It decides; the engine executes through narrow callbacks.
 
-Port of ``repro/serving/lifecycle.py``; the int8 host tier's knobs
-(``host_kv_dtype``, ``cold_page_compress_after``) come later.
+Port of ``repro/serving/lifecycle.py``.
 """
 from __future__ import annotations
 
@@ -122,6 +121,18 @@ class EngineConfig:
     host_breaker_cooldown: float = 1.0
     # sliding window (seconds) of the degradation-ladder level
     degradation_window: float = 5.0
+    # --- host-KV precision and cold-page compression ------------------
+    # stored dtype of the paged host pool: "fp32" (exact) or "int8"
+    # (symmetric per-token quantization with fp32 scales: ~4x the
+    # resident tokens per byte of host memory, cheaper tier moves, and
+    # the perf model prices t_catt / t_migrate at the stored size); int8
+    # logits drift within the reference's bounded-drift envelope
+    host_kv_dtype: str = "fp32"
+    # seconds a host-pool owner may sit untouched before its pages are
+    # compressed losslessly in place (rehydrated on the next touch; the
+    # reclaim also compresses evictable owners' pages before evicting
+    # them); 0 disables compression
+    cold_page_compress_after: float = 0.0
     # where the model and the device KV cache live; "cuda" needs a card
     device: str = "cuda"
 
@@ -215,6 +226,19 @@ class EngineStats:
     host_fallbacks: int = 0
     host_breaker_trips: int = 0
     cancelled: int = 0
+    # host-pool byte accounting at the stored dtype (hot = occupied
+    # physical pages, compressed = cold blobs, free = unoccupied pages),
+    # stored bytes per KV element (1 = int8, 4 = fp32), and cold-page
+    # compression activity (counters, and the codec's compressed/raw
+    # ratio EWMA, None until the first compression); the engine copies
+    # them from the pool when its stats are read
+    host_pool_hot_bytes: int = 0
+    host_pool_compressed_bytes: int = 0
+    host_pool_free_bytes: int = 0
+    host_kv_dtype_bytes: int = 0
+    host_pages_compressed: int = 0
+    host_pages_decompressed: int = 0
+    host_compressed_ratio_ewma: Optional[float] = None
     # per-tier occupancy: slot-iterations accumulated each iteration
     device_slot_iterations: int = 0
     host_slot_iterations: int = 0
@@ -289,8 +313,7 @@ class EngineStats:
     def snapshot(self) -> Dict[str, Optional[float]]:
         """Flat metric name -> value view of the serving counters (the
         surface the reference's gateway exports); None marks a
-        distribution without samples.  The reference's host-pool byte
-        gauges belong to the int8 host tier, not ported yet."""
+        distribution without samples."""
         return {
             "iterations": float(self.iterations),
             "device_tokens": float(self.device_tokens),
@@ -320,6 +343,14 @@ class EngineStats:
             "prefix_demotions": float(self.prefix_demotions),
             "prefix_device_bytes": float(self.prefix_device_bytes),
             "prefix_host_bytes": float(self.prefix_host_bytes),
+            "host_pool_hot_bytes": float(self.host_pool_hot_bytes),
+            "host_pool_compressed_bytes": float(
+                self.host_pool_compressed_bytes),
+            "host_pool_free_bytes": float(self.host_pool_free_bytes),
+            "host_kv_dtype_bytes": float(self.host_kv_dtype_bytes),
+            "host_pages_compressed": float(self.host_pages_compressed),
+            "host_pages_decompressed": float(self.host_pages_decompressed),
+            "host_compressed_ratio_ewma": self.host_compressed_ratio_ewma,
             "ttft_p50_seconds": self.ttft_p50,
             "ttft_p95_seconds": self.ttft_p95,
             "itl_p50_seconds": self.itl_p50,

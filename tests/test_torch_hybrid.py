@@ -202,11 +202,15 @@ def _mamba_entries(cfg):
 
 def _port_state(cfg, rst):
     """The reference's StackState as the port's, leaf for leaf (bf16
-    leaves bit-exact through ml_dtypes' uint16 view)."""
+    leaves bit-exact through ml_dtypes' uint16 view).  Every leaf is a
+    copy: the port's decode writes its state in place, and the reference
+    may still be reading the arrays it came from (jax dispatches
+    asynchronously)."""
     def leaf(a):
         a = np.asarray(a)
         if a.dtype == ml_dtypes.bfloat16:
-            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+            return torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
         return torch.from_numpy(a.copy())
     entries = tuple(
         (AttnKV if kind == BlockKind.ATTN else MambaState)(
@@ -443,22 +447,50 @@ def test_hybrid_engine_matches_reference_engine(hybrid_pair, tiers):
 
 @pytest.mark.parametrize("case", ["moe", "xlstm"])
 def test_unported_stacks_name_their_roadmap_item(case, monkeypatch):
-    """Jamba as published (MoE FFN) and an xLSTM stack raise
-    NotImplementedError naming the ROADMAP item; the serve CLI raises it
-    before it looks for a device."""
+    """An xLSTM stack raises NotImplementedError naming its ROADMAP item.
+    Jamba as published (MoE FFN on every second entry) runs: reduced in
+    fp32 with the reference's weights, prefill and three decode steps
+    (each from the reference's own state) match its logits at 1e-4, and
+    the serve CLI accepts the architecture."""
     from repro_torch.launch import serve
     from repro_torch.models import check_supported, init_params
-    if case == "moe":
-        cfg, item = get_config(ARCH), "queue 1 item 8"
-    else:
+    if case == "xlstm":
         cfg = dataclasses.replace(get_config("llama3.1-8b").reduced(),
                                   block_pattern=(BlockKind.SLSTM,))
         item = "queue 1 item 7"
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        init_params(cfg.reduced(), device="cpu")
-    if case == "moe":
-        monkeypatch.setattr("sys.argv", ["serve", "--arch", ARCH])
-        with pytest.raises(NotImplementedError, match="MoE"):
-            serve.main()
+        with pytest.raises(NotImplementedError, match=item):
+            check_supported(cfg)
+        with pytest.raises(NotImplementedError, match=item):
+            init_params(cfg.reduced(), device="cpu")
+        return
+    kw = dict(param_dtype="float32", compute_dtype="float32")
+    rcfg = dataclasses.replace(ref_get_config(ARCH).reduced(d_model=64,
+                                                            vocab=64), **kw)
+    cfg = dataclasses.replace(get_config(ARCH).reduced(d_model=64, vocab=64),
+                              **kw)
+    check_supported(get_config(ARCH))
+    assert cfg.ffn_kind == FFNKind.MOE and cfg.moe.num_experts == 8
+    rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, rparams), "cpu")
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 9))
+    rst = ref_state(rcfg, device_batch=2, cache_len=32, kv_dtype=jnp.float32)
+    rlog, rst = ref_prefill(rparams, rcfg,
+                            {"tokens": jnp.asarray(prompt, jnp.int32)}, rst)
+    st = init_decode_state(cfg, device_batch=2, cache_len=32, device="cpu",
+                           kv_dtype=torch.float32)
+    log, _ = prefill(params, cfg, {"tokens": torch.from_numpy(prompt)}, st)
+    np.testing.assert_allclose(_np(log), _np(rlog), rtol=1e-4, atol=1e-4)
+    for _ in range(3):
+        tok = np.argmax(np.asarray(rlog), -1)
+        here = _port_state(cfg, rst)
+        rlog, rst, _, _ = ref_decode(rparams, rcfg,
+                                     jnp.asarray(tok, jnp.int32), rst)
+        log, _, _, _ = port_decode(params, cfg, torch.from_numpy(tok), here)
+        np.testing.assert_allclose(_np(log), _np(rlog), rtol=1e-4,
+                                   atol=1e-4)
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", ARCH, "--device", "cpu", "--d-model", "64",
+        "--layers", "8", "--requests", "2", "--prompt-len", "5",
+        "--output-len", "2", "--device-slots", "1", "--host-slots", "1",
+        "--cache-len", "32", "--perf-model", "analytic", "--no-stream"])
+    serve.main()
