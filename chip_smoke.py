@@ -61,10 +61,33 @@ Phases (any failure exits non-zero):
      and held under the reference's 0.75 on llama3.1-8b cut to 8 layers
      run the same way (on this MoE geometry the reference's own int8 drift
      exceeds 0.75: tools/moe_drift_cpu.py);
- 10. cli: ``python -m repro_torch.launch.serve`` with its defaults (the
-     measured perf model), with ``--fault-plan host_error@2``, and with
+ 10. serving-registry: stablelm-12b (head_dim 160, 40 layers),
+     internlm2-20b (group 6, cut to 16 layers) and llama3-405b (group
+     16, cut to 4 layers) at published width, 4 requests of 128 -> 16 tokens over 2
+     device + 2 host slots, whole-prompt prefill, the analytic h100 perf
+     model: both tiers decode, no host fallback, both kernels launched;
+ 11. serving-xlstm: xlstm-125m at published width and depth (bf16),
+     GPU-only, on serving-chunked's chat traffic with the defaults and
+     with the prefix cache, rebalancing and preemption off: the streams
+     equal up to two-ULP ties; a traced window;
+ 12. vlm: paligemma-3b at published width served as a text model
+     (phase 5's traffic), then prefix-LM prefill over 256 patch
+     embeddings + 32 tokens and 8 decode steps (fp32), held against
+     forward_train's teacher-forced logits at 2e-2;
+ 13. encoder: hubert-xlarge at published width, forward_train over 4 x
+     500 frames (full attention, head_dim 80): finite logits, and its
+     first two layers against the CPU's fp32 forward at 5e-2;
+ 14. cli: ``python -m repro_torch.launch.serve`` with its defaults (the
+     measured perf model), with ``--fault-plan host_error@2``, with
      ``--arch deepseek-moe-16b --perf-model analytic --host-kv-dtype
-     int8``.
+     int8``, with ``--arch xlstm-125m --perf-model analytic`` and with
+     ``--arch paligemma-3b``.
+
+Phase 2 also holds both attention kernels at the registry's published
+head geometries (group 6, group 16, head_dim 160 and 256; the VLM's
+prefix-LM span; the encoder's full attention at head_dim 80 over T 500)
+and the fp32 prefill at head_dims 80, 160 and 256, and prints every
+kernel instantiation's registers and spills from ``-Xptxas -v``.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
@@ -156,6 +179,27 @@ CHAT = dict(conversations=4, turns=3, system_len=128, user_len=48,
             output_len=16, urgent_len=400, urgent_output=96, device_slots=2,
             host_slots=4, cache_len=512, page_size=32, llama_layers=16,
             compress_after=0.01)
+# the reference registry's published head geometries that the main path
+# never reaches, as (H, KV, D): group 6, group 16, head_dim 160 and 256
+# (decode and causal prefill, B 4: S 512 and T 128), the VLM's prefix
+# (256 patches + 32 text tokens, prefix_len 256) and the encoder's full
+# attention (head_dim 80, T 500: ten seconds of audio at HuBERT's 50 Hz)
+REGISTRY_ATTN = {"internlm2-20b": (48, 8, 128), "llama3-405b": (128, 8, 128),
+                 "stablelm-12b": (32, 8, 160), "paligemma-3b": (8, 1, 256)}
+REGISTRY_BENCH = dict(rows=4, cache_len=512, lo=129, hi=145, prompt_len=128,
+                      layers=8)
+VLM = dict(rows=4, patches=256, text=32, decode_steps=8)
+ENCODER = dict(rows=4, frames=500, check_layers=2)
+# serving-registry: the dense configs at published width, 4 requests of
+# 128 -> 16 tokens over 2 device + 2 host slots, whole-prompt prefill,
+# the analytic h100 perf model; stablelm-12b at its published depth,
+# internlm2-20b cut to 16 of its 48 layers (at 48 its host rows decode a
+# token every 49 iterations: 87 s for the phase's traffic) and
+# llama3-405b to 4 of its 126 (one layer is 6.4 GB of bf16 weights)
+REGISTRY_SERVE = dict(requests=4, prompt_len=128, output_len=16,
+                      device_slots=2, host_slots=2, cache_len=512)
+REGISTRY_LAYERS = {"stablelm-12b": 40, "internlm2-20b": 16,
+                   "llama3-405b": 4}
 CARD = ""           # nvidia-smi's "name, power.limit", set by phase 1
 # a part of each hand-written kernel's name, as the profiler reports it
 PORT_KERNELS = {"decode_attention": "decode_kernel",
@@ -791,6 +835,157 @@ def bench_moe_shapes(gen) -> dict:
             "prefill_attention": _sub_record(pre)}
 
 
+def _bench_span(gen, *, b, t, h, kv, d, causal=True, prefix=0,
+                label="span") -> dict:
+    """Prefill attention over a span of its own (S = T, the stateless
+    forward's shape): causal with a prefix-LM prefix, or full attention
+    (the encoder); kernel vs plain version vs SDPA with the mask made
+    explicit.  The bound counts the (query, key) pairs the mask leaves
+    visible."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    dt, el = torch.bfloat16, 2
+    q = _randn(gen, (b, t, h, d), dt, "cuda")
+    k = _randn(gen, (b, t, kv, d), dt, "cuda")
+    v = _randn(gen, (b, t, kv, d), dt, "cuda")
+    pre = torch.full((b,), prefix, dtype=torch.int32, device="cuda")
+    shape = f"{label} B{b} T{t} H{h} KV{kv} D{d} " + (
+        f"causal, prefix_len {prefix}" if causal else "full") + " bf16"
+    got = prefill_attention_cuda(q, k, v, pre, causal=causal)
+    err, ok = close(got, ref.prefill_attention_ref(q, k, v, pre,
+                                                   causal=causal),
+                    TOL["prefill", "bfloat16"])
+    if not ok:
+        fail(f"prefill at {shape}: err {err}")
+    idx = torch.arange(t, device="cuda")
+    mask = ((idx[None, :] <= idx[:, None]) | (idx[None, :] < prefix)) \
+        if causal else torch.ones((t, t), dtype=torch.bool, device="cuda")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    times = _times(
+        lambda: prefill_attention_cuda(q, k, v, pre, causal=causal),
+        lambda: ref.prefill_attention_ref(q, k, v, pre, causal=causal),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask if causal else None, enable_gqa=True))
+    pairs = b * int(mask.sum())
+    nbytes = 2 * b * t * h * d * el + 2 * b * t * kv * d * el + 4 * b
+    flops = 4 * pairs * h * d
+    return _record(
+        "prefill_attention", "src/repro_torch/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention.py:128", err, times, nbytes,
+        flops, "bfloat16", shape)
+
+
+def check_fma_new_dims(gen) -> None:
+    """The fp32 (FMA) prefill kernel at head_dims 80, 160 and 256 against
+    the fp32 plain version at the 1e-5 bar: full attention over a ragged
+    T, and causal with a prefix past the first query blocks, over an
+    fp32 and a bf16 cache."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    for (h, kv, d), kv_dtype in (((16, 16, 80), torch.float32),
+                                 ((32, 8, 160), torch.bfloat16),
+                                 ((8, 1, 256), torch.float32),
+                                 ((8, 1, 256), torch.bfloat16)):
+        b, t = 2, 100
+        q = _randn(gen, (b, t, h, d), torch.float32, "cuda")
+        k = _randn(gen, (b, t, kv, d), kv_dtype, "cuda")
+        v = _randn(gen, (b, t, kv, d), kv_dtype, "cuda")
+        pre = torch.tensor([70, 5], dtype=torch.int32, device="cuda")
+        for causal in (True, False):
+            err, ok = close(prefill_attention_cuda(q, k, v, pre,
+                                                   causal=causal),
+                            ref.prefill_attention_ref(q, k, v, pre,
+                                                      causal=causal), 1e-5)
+            log(f"  prefill fp32 FMA H{h} KV{kv} D{d} cache "
+                f"{dtype_name(kv_dtype)} causal={causal}: max_abs_err "
+                f"{err:.3e}")
+            if not ok:
+                fail(f"fp32 prefill at D {d}, causal={causal}: err {err}")
+
+
+def bench_registry_shapes(gen) -> dict:
+    """Both attention kernels at the reference registry's published head
+    geometries (``REGISTRY_ATTN``): decode over B 4 rows of a 512 cache,
+    a causal bucket of B 4 prompts of 128, the VLM's prefix-LM span and
+    the encoder's full attention over T 500."""
+    r = REGISTRY_BENCH
+    out = {"decode_attention": {}, "prefill_attention": {}}
+    for name, (h, kv, d) in REGISTRY_ATTN.items():
+        out["decode_attention"][name] = _sub_record(_bench_decode(
+            gen, b=r["rows"], h=h, kv=kv, d=d, s=r["cache_len"],
+            layers=r["layers"], lo=r["lo"], hi=r["hi"]))
+        out["prefill_attention"][name] = _sub_record(_bench_chunk(
+            gen, cb=r["rows"], ct=r["prompt_len"], s=r["cache_len"], h=h,
+            kv=kv, d=d, label=f"{name} bucket", spread=False))
+    out["prefill_attention"]["paligemma-3b prefix"] = _sub_record(
+        _bench_span(gen, b=VLM["rows"], t=VLM["patches"] + VLM["text"],
+                    h=8, kv=1, d=256, prefix=VLM["patches"],
+                    label="paligemma-3b patches + text"))
+    out["prefill_attention"]["hubert-xlarge"] = _sub_record(_bench_span(
+        gen, b=ENCODER["rows"], t=ENCODER["frames"], h=16, kv=16, d=80,
+        causal=False, label="hubert-xlarge frames"))
+    return out
+
+
+def ptxas_report(logs: dict) -> None:
+    """Every kernel instantiation's registers and spill bytes from the
+    ``-Xptxas -v`` build logs, one line each under chiprun_out/, and a
+    line per (source, head_dim) here; any spill is printed by name."""
+    import re
+    import shutil
+    entries = []
+    for src, text in logs.items():
+        name, spill = None, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name is not None:
+                entries.append([src, name, int(m.group(1)), spill or (0, 0)])
+                name, spill = None, None
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[1] for e in entries), capture_output=True, text=True).stdout
+        for e, dem in zip(entries, names.splitlines()):
+            e[1] = dem.replace("(anonymous namespace)::", "").split(
+                "(")[0].replace("void ", "").strip()
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ptxas.txt").write_text("".join(
+        f"{src}\t{name}\t{regs} registers\t{st} B spill stores\t{ld} B "
+        f"spill loads\n" for src, name, regs, (st, ld) in entries))
+    groups = {}
+    for src, name, regs, (st, ld) in entries:
+        args = re.search(r"<(.*)>", name)
+        dims = [a for a in (args.group(1).split(", ") if args else [])
+                if a.strip().isdigit() and int(a) >= 32]
+        key = (src, name.split("<")[0].split("::")[-1],
+               dims[0] if dims else "-")
+        g = groups.setdefault(key, [10**9, 0, 0, 0])
+        g[0], g[1] = min(g[0], regs), max(g[1], regs)
+        g[2], g[3] = g[2] + st, g[3] + ld
+        if st or ld:
+            log(f"  [ptxas] {name}: {regs} registers, {st} B spill stores, "
+                f"{ld} B spill loads")
+    for (src, kern, dim), (lo, hi, st, ld) in sorted(
+            groups.items(), key=lambda kv: (kv[0][:2], int(kv[0][2])
+                                            if kv[0][2].isdigit() else 0)):
+        log(f"  [ptxas] {kern} D {dim}: {lo}-{hi} registers, spills "
+            f"{st} B stored / {ld} B loaded over its instantiations")
+    log(f"  [ptxas] {len(entries)} instantiations; one line each in "
+        f"chiprun_out/ptxas.txt")
+
+
 def graph_launches(fn, calls: int, kernel: str) -> dict:
     """What ``calls`` calls of ``fn`` put on the stream, by graph node
     type, with launches of ``kernel`` apart: the calls are captured in
@@ -974,10 +1169,7 @@ def phase_kernels() -> dict:
     logs = build.build()
     log(f"built {', '.join(build.KERNELS)} with nvcc in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  [{name}] {line.strip()}")
+    ptxas_report(logs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_sweeps(gen)
     check_chunk_split_bitwise(gen)
@@ -992,6 +1184,11 @@ def phase_kernels() -> dict:
     records["prefill_attention"]["chunk_shape"] = bench_chunk_shape(gen)
     for name, rec in bench_moe_shapes(gen).items():
         records[name]["moe_shape"] = rec
+    # last again, so every earlier case draws the inputs it drew: the
+    # registry's head geometries
+    check_fma_new_dims(gen)
+    for name, recs in bench_registry_shapes(gen).items():
+        records[name]["registry_shapes"] = recs
     return records
 
 
@@ -1181,18 +1378,21 @@ def _kernel_wrappers() -> dict:
             "mamba_selective_scan": mamba_selective_scan_cuda}
 
 
-def _serve_published(cfg, traced_iters: int) -> dict:
-    """Serve MAIN's traffic on ``cfg`` (random bf16 weights, seed 0)
-    through InferenceServer; print the end-to-end numbers and fail on a
-    wrong run.  Returns each kernel's launches over the measured run."""
+def _serve_published(cfg, traced_iters: int, traffic: dict = MAIN) -> dict:
+    """Serve ``traffic`` (MAIN's by default) on ``cfg`` (random bf16
+    weights, seed 0) through InferenceServer; print the end-to-end
+    numbers, and a traced window when ``traced_iters``; fail on a wrong
+    run (a request short of its tokens, a NaN, a tier that decoded
+    nothing, a host fallback, no hybrid decision, a kernel launched fewer
+    times than the path needs).  Returns each kernel's launches over the
+    measured run."""
     import numpy as np
     import torch
-    from repro_torch.core.scheduler import StrategyKind
     from repro_torch.models import init_params
-    from repro_torch.models.config import BlockKind
     from repro_torch.serving import ServerConfig
     log(f"  {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
-        f"{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, "
         f"{cfg.num_layers} layers (attention at {cfg.attn_layer_indices}), "
         f"{cfg.param_dtype}, {cfg.param_count() / 1e9:.2f} B parameters")
     t0 = time.perf_counter()
@@ -1201,7 +1401,7 @@ def _serve_published(cfg, traced_iters: int) -> dict:
     log(f"  random weights from torch.Generator(seed 0) in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    plen, out_len = MAIN["prompt_len"], MAIN["output_len"]
+    plen, out_len = traffic["prompt_len"], traffic["output_len"]
     page_size = 32
     # one resident's pages over every attention layer
     pages_per_resident = (-(-(plen + out_len) // page_size)) \
@@ -1209,15 +1409,15 @@ def _serve_published(cfg, traced_iters: int) -> dict:
     # whole-prompt bucketed prefill and no tier moves or prefix cache:
     # the path these two phases have measured since their first runs
     # (serving-chunked drives the defaults)
-    scfg = ServerConfig(device_slots=MAIN["device_slots"],
-                        host_slots=MAIN["host_slots"],
-                        cache_len=MAIN["cache_len"], page_size=page_size,
+    scfg = ServerConfig(device_slots=traffic["device_slots"],
+                        host_slots=traffic["host_slots"],
+                        cache_len=traffic["cache_len"], page_size=page_size,
                         host_pool_pages=pages_per_resident
-                        * MAIN["host_slots"], device="cuda",
+                        * traffic["host_slots"], device="cuda",
                         chunk_tokens=0, **FEATURES_OFF)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, plen).tolist()
-               for _ in range(MAIN["requests"])]
+               for _ in range(traffic["requests"])]
     # warm-up: one short request through its own server (cuBLAS handles,
     # first launches); not part of the measured run
     _serve_once(cfg, params, scfg, prompts[:1], 2)
@@ -1241,14 +1441,20 @@ def _serve_published(cfg, traced_iters: int) -> dict:
         f"{stats.ttft_p95 * 1e3:.1f} ms; ITL p50 "
         f"{(stats.itl_p50 or 0) * 1e3:.1f} ms; host busy "
         f"{stats.host_busy_time:.3f} s (transfer "
-        f"{stats.host_transfer_time:.3f} s); strategies "
-        f"{stats.strategy_counts}")
+        f"{stats.host_transfer_time:.3f} s); host fallbacks "
+        f"{stats.host_fallbacks}; strategies {stats.strategy_counts}")
     log(f"  launches {launches} over {buckets} admission bucket(s); host "
         f"pool {scfg.host_pool_pages} pages = {pool_bytes / 2**20:.0f} MiB; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        " GiB")
-    share, ms_iter, per_kernel, ops = _traced_window(
-        cfg, params, scfg, prompts, out_len, traced_iters)
+        f" GiB [{CARD}]")
+    _check_served(cfg, reqs, stats, saw_nan, out_len, launches, buckets)
+    if traced_iters:
+        _print_traced(*_traced_window(cfg, params, scfg, prompts, out_len,
+                                      traced_iters), traced_iters)
+    return launches
+
+
+def _print_traced(share, ms_iter, per_kernel, ops, traced_iters) -> None:
     log(f"  traced window ({traced_iters} iterations, separate run): "
         f"{ms_iter:.2f} ms per iteration, device busy {100 * share:.1f}% of "
         f"wall (idle {100 * (1 - share):.1f}%); top kernels by device time:")
@@ -1265,14 +1471,24 @@ def _serve_published(cfg, traced_iters: int) -> dict:
     for ms, count, key, shapes in ops[:8] + copies[:6]:
         log(f"    {ms:8.3f} ms/iter  {count:4d} calls/iter  {key} "
             f"{str(shapes)[:110]}")
+
+
+def _check_served(cfg, reqs, stats, saw_nan, out_len, launches,
+                  buckets) -> None:
+    from repro_torch.core.scheduler import StrategyKind
+    from repro_torch.models.config import BlockKind
     bad = [r.request_id for r in reqs
            if r.failed or len(r.output) != out_len]
     if bad:
-        fail(f"requests {bad} did not finish with {out_len} tokens")
+        fail(f"{cfg.name}: requests {bad} did not finish with {out_len} "
+             "tokens")
     if saw_nan:
-        fail("a logit was NaN")
-    if stats.host_tokens <= 0:
-        fail("no token was decoded on the host tier")
+        fail(f"{cfg.name}: a logit was NaN")
+    if stats.host_tokens <= 0 or stats.device_tokens <= 0:
+        fail(f"{cfg.name}: a tier decoded nothing (device "
+             f"{stats.device_tokens}, host {stats.host_tokens} tokens)")
+    if stats.host_fallbacks:
+        fail(f"{cfg.name}: {stats.host_fallbacks} host fallbacks")
     hybrid = sum(n for k, n in stats.strategy_counts.items()
                  if k != StrategyKind.GPU_ONLY.value)
     if hybrid < 1:
@@ -1286,10 +1502,9 @@ def _serve_published(cfg, traced_iters: int) -> dict:
             "mamba_selective_scan": n_mamba * (device_iters + buckets)}
     for name, n in need.items():
         if launches[name] < n:
-            fail(f"{name} launched {launches[name]} times; the path needs "
-                 f"at least {n} ({device_iters} device-row iterations, "
-                 f"{buckets} admission buckets)")
-    return launches
+            fail(f"{cfg.name}: {name} launched {launches[name]} times; the "
+                 f"path needs at least {n} ({device_iters} device-row "
+                 f"iterations, {buckets} admission buckets)")
 
 
 def phase_serving() -> dict:
@@ -2564,6 +2779,268 @@ def phase_cli() -> None:
             or int(m.group(2)) < 1:
         fail("launch.serve --arch deepseek-moe-16b --host-kv-dtype int8 "
              "decoded no token on an int8 host pool")
+    # the xLSTM stack (GPU-only) and the VLM as a text model, reduced
+    for extra, host in ((("--arch", "xlstm-125m", "--perf-model",
+                          "analytic"), False), (("--arch", "paligemma-3b"),
+                                                True)):
+        out = _serve_cli(*extra)
+        m = re.search(r"tokens: device=(\d+) host=(\d+)", out)
+        if m is None or int(m.group(1)) < 1 or (int(m.group(2)) > 0) != host:
+            fail(f"launch.serve {' '.join(extra)}: tokens "
+                 f"{m.groups() if m else None}, want host tokens: {host}")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the reference registry at published width
+# ---------------------------------------------------------------------------
+
+
+def _free_device() -> None:
+    import gc
+    import torch
+    gc.collect()            # earlier phases' engines hold reference cycles
+    torch.cuda.empty_cache()
+
+
+def _new_params(cfg):
+    """Random bf16 weights from seed 0 on the card, timed."""
+    import torch
+    from repro_torch.models import init_params
+    log(f"  {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.num_layers} layers "
+        f"{[k.value for k in cfg.block_pattern]}, {cfg.param_dtype}, "
+        f"{cfg.param_count() / 1e9:.2f} B parameters")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  random weights from torch.Generator(seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return params
+
+
+def phase_serving_registry() -> dict:
+    """stablelm-12b (head_dim 160), internlm2-20b (group 6, cut to 16 of
+    its 48 layers) and llama3-405b (group 16, cut to 4 of its 126) at
+    published width in bf16, REGISTRY_SERVE's traffic through
+    ``_serve_published``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    total = {}
+    for name, layers in REGISTRY_LAYERS.items():
+        cfg = get_config(name)
+        if layers != cfg.num_layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers,
+                                      name=f"{name}-{layers}L")
+        log(f"  -- {cfg.name}: group {cfg.q_per_kv}, head_dim "
+            f"{cfg.resolved_head_dim}")
+        t0 = time.perf_counter()
+        counts = _serve_published(cfg, 0, REGISTRY_SERVE)
+        _free_device()
+        log(f"  {cfg.name}: {time.perf_counter() - t0:.1f} s with set-up")
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+    return total
+
+
+def phase_serving_xlstm() -> dict:
+    """xlstm-125m at published width and depth (12 layers of mLSTM and
+    sLSTM blocks, d_model 768, 4 heads, vocab 50304) in bf16, served
+    GPU-only (no KV cache: offload off): serving-chunked's chat traffic
+    with the reference's defaults but one prefix-cache device row per
+    conversation (without a host pool an entry evicted from the default
+    two rows is dropped, and four conversations then never hit), then
+    with the prefix cache, rebalancing and preemption off; the streams
+    must be equal up to two-ULP ties.  At fp32 parameters a recurrent stack is not
+    chunk-boundary invariant (its conv window is bf16), hence bf16.  Then
+    a traced window of decode iterations: the recurrences are eager
+    loops over time, no kernel of the port runs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    _free_device()
+    cfg = get_config("xlstm-125m")
+    params = _new_params(cfg)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    scfg = chat_config(cfg, "cuda",
+                       prefix_cache_slots=CHAT["conversations"])
+    on, stats, wall, (watch, on_m), eng, _ = chat_run(cfg, params, scfg)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if eng.e.enable_offload or stats.host_tokens:
+        fail("xlstm-125m: the host tier ran (it has no KV cache)")
+    off, off_stats, off_wall, (off_watch, off_m), _, _ = chat_run(
+        cfg, params, chat_config(cfg, "cuda", **FEATURES_OFF))
+    counters = dict(prefill_chunks=stats.prefill_chunks,
+                    chunk_co_run_iterations=stats.chunk_co_run_iterations,
+                    prefix_device_hits=stats.prefix_device_hits)
+    log(f"  defaults: {stats.iterations} iterations in {wall:.2f} s "
+        f"({1e3 * wall / stats.iterations:.2f} ms per iteration), "
+        f"{(stats.device_tokens) / wall:.2f} output tokens/s, TTFT p50 "
+        f"{stats.ttft_p50 * 1e3:.1f} ms, ITL p50 "
+        f"{(stats.itl_p50 or 0) * 1e3:.1f} ms, {counters}; features off: "
+        f"{off_stats.iterations} iterations in {off_wall:.2f} s; launches "
+        f"{launches} [{CARD}]")
+    if bool(watch.nan) or bool(off_watch.nan):
+        fail("xlstm-125m: a logit was NaN")
+    zero = [k for k, n in counters.items() if n <= 0]
+    if zero:
+        fail(f"xlstm-125m: {zero} did not fire")
+    same, flips, other = compare_streams(on, off, on_m, off_m, watch.dtype)
+    log(f"  {same} of {len(on)} streams identical to the features-off run"
+        + ("" if not flips else "; parted at a tie: " + "; ".join(flips)))
+    if other:
+        fail("xlstm-125m: streams part by more than two logit ULPs: "
+             + "; ".join(other))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 128).tolist()
+               for _ in range(CHAT["device_slots"])]
+    share, ms_iter, per_kernel, _ = _traced_window(
+        cfg, params, scfg, prompts, 32, 16)
+    log(f"  traced window (16 decode iterations, separate run): "
+        f"{ms_iter:.2f} ms per iteration, device busy {100 * share:.1f}% "
+        f"(idle {100 * (1 - share):.1f}%); top kernels:")
+    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]:
+        log(f"    {ms:8.3f} ms/iter  {key[:100]}")
+    del params, eng
+    _free_device()
+    return launches
+
+
+def phase_vlm() -> dict:
+    """paligemma-3b at published width and depth (18 layers, d_model 2048,
+    MQA 8/1 heads of 256, d_ff 16384, vocab 257216, tied embeddings):
+    first served as the reference's engine serves it, a text model
+    (MAIN's traffic, ``_serve_published``, bf16); then ``model.prefill``
+    over 256 random patch embeddings + 32 text tokens on 4 rows and 8
+    greedy decode steps, held as the reference's prefill/decode
+    consistency test holds them: against ``forward_train``'s
+    teacher-forced logits at 2e-2.  That check runs in fp32 with an fp32
+    cache: in bf16 the two paths round in other places, and 18 layers
+    put their logits (up to ~8) several bf16 ULPs apart (0.14), where
+    the reference's test runs 2 layers of d_model 64.  The bf16 kernels
+    are held at this prefix shape in phase 2."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward_train,
+                                    init_decode_state, prefill)
+    _free_device()
+    cfg = get_config("paligemma-3b")
+    launches = _serve_published(cfg, traced_iters=12)
+    _free_device()
+    cfg = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    params = _new_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, n_pre, n_text, steps = (VLM["rows"], VLM["patches"], VLM["text"],
+                               VLM["decode_steps"])
+    patches = _randn(gen, (b, n_pre, cfg.d_model), torch.float32, "cuda")
+    text = torch.randint(0, cfg.vocab_size, (b, n_text), generator=gen,
+                         device="cuda")
+    state = init_decode_state(cfg, device_batch=b,
+                              cache_len=n_pre + n_text + steps + 1,
+                              device="cuda", kv_dtype=torch.float32)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, state = prefill(params, cfg, {"patches": patches,
+                                          "tokens": text}, state)
+    steps_out, toks = [logits], []
+    for _ in range(steps):
+        toks.append(steps_out[-1].argmax(-1))
+        logits, state, _, _ = decode_step(params, cfg, toks[-1], state)
+        steps_out.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    full, _ = forward_train(params, cfg, {
+        "patches": patches, "tokens": torch.cat([text] + [
+            t[:, None] for t in toks], dim=1)})
+    start = n_pre + n_text - 1
+    worst = 0.0
+    for i, got in enumerate(steps_out[:-1]):
+        err, ok = close(got, full[:, start + i], 2e-2)
+        worst = max(worst, err)
+        if not ok:
+            fail(f"paligemma-3b: {'prefill' if i == 0 else f'decode {i}'} "
+                 f"logits part from forward_train's by {err:.3e}")
+    log(f"  fp32 prefix-LM prefill of {n_pre} patches + {n_text} tokens on "
+        f"{b} rows and {steps} decode steps in {wall:.3f} s; every step's "
+        f"logits within 2e-2 of forward_train's (max |diff| {worst:.3e}); "
+        f"launches {counts} [{CARD}]")
+    n_attn = cfg.num_attn_layers
+    if counts["prefill_attention"] < n_attn \
+            or counts["decode_attention"] < n_attn * steps:
+        fail(f"paligemma-3b: launches {counts} below {n_attn} prefill and "
+             f"{n_attn * steps} decode")
+    del params, state, full
+    _free_device()
+    return {name: launches[name] + counts[name] for name in launches}
+
+
+def phase_encoder() -> dict:
+    """hubert-xlarge at published width and depth (48 layers, d_model 1280,
+    16 heads of 80, vocab 504): ``forward_train`` over 4 x 500 random
+    frame embeddings (ten seconds of audio at 50 Hz) through the
+    full-attention prefill kernel; finite logits of (4, 500, 504).  Its
+    first two layers on the card (bf16, the kernel) are held against the
+    port's fp32 forward of the same weights on the CPU (the plain
+    versions) at atol = rtol = 5e-2: bf16's 8-bit mantissa rounds the
+    weights, activations and the kernel's probabilities, and the plain
+    version in bf16 alone is 0.026 off the fp32 one on such an input."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelParams, forward_train
+    _free_device()
+    cfg = get_config("hubert-xlarge")
+    params = _new_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frames = _randn(gen, (ENCODER["rows"], ENCODER["frames"], cfg.d_model),
+                    torch.bfloat16, "cuda")
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = forward_train(params, cfg, {"embeds": frames})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    want = (ENCODER["rows"], ENCODER["frames"], cfg.vocab_size)
+    finite = bool(torch.isfinite(logits.float()).all())
+    log(f"  forward_train over {want[0]} x {want[1]} frames in {wall:.3f} "
+        f"s (first call): logits {tuple(logits.shape)}, finite {finite}; "
+        f"launches {counts} [{CARD}]")
+    if tuple(logits.shape) != want or not finite:
+        fail(f"hubert-xlarge: logits {tuple(logits.shape)}, finite "
+             f"{finite}")
+    if counts["prefill_attention"] < cfg.num_attn_layers:
+        fail(f"hubert-xlarge: prefill_attention launched "
+             f"{counts['prefill_attention']} times for "
+             f"{cfg.num_attn_layers} layers")
+    n = ENCODER["check_layers"]
+    short = dataclasses.replace(cfg, num_layers=n)
+    cut = ModelParams(params.embedding, tuple(
+        {name: {k: w[:n] for k, w in sub.items()} for name, sub in e.items()}
+        for e in params.blocks), params.final_norm)
+    card, _ = forward_train(cut, short, {"embeds": frames})
+    f32 = dataclasses.replace(short, param_dtype="float32",
+                              compute_dtype="float32")
+    cpu = ModelParams(*(torch.utils._pytree.tree_map(
+        lambda a: a.float().cpu(), part) for part in cut))
+    plain, _ = forward_train(cpu, f32, {"embeds": frames.float().cpu()})
+    err, ok = close(card.float().cpu(), plain, 5e-2)
+    log(f"  first {n} layers, bf16 on the card against fp32 on the CPU: "
+        f"max |diff| {err:.3e} (logits up to "
+        f"{float(plain.abs().max()):.3f})")
+    if not ok:
+        fail(f"hubert-xlarge: the card's {n}-layer logits part from the "
+             f"CPU's fp32 ones by {err:.3e}")
+    del params, cut, logits, card
+    _free_device()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2571,7 +3048,8 @@ def phase_cli() -> None:
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "kernels", "profile", "exactness", "serving",
-          "serving-hybrid", "faults", "serving-chunked", "serving-moe", "cli")
+          "serving-hybrid", "faults", "serving-chunked", "serving-moe",
+          "serving-registry", "serving-xlstm", "vlm", "encoder", "cli")
 
 
 def main() -> int:
@@ -2625,6 +3103,22 @@ def main() -> int:
         log("== serving deepseek-moe-16b at published width, the host tier "
             "in fp32 and in int8")
         launches["serving-moe"] = phase_serving_moe()
+    if "serving-registry" in phases:
+        log("== serving stablelm-12b, internlm2-20b (16 layers) and "
+            "llama3-405b (4 layers) at published width")
+        launches["serving-registry"] = phase_serving_registry()
+    if "serving-xlstm" in phases:
+        log("== serving xlstm-125m at published width, GPU-only: "
+            "multi-turn chat")
+        launches["serving-xlstm"] = phase_serving_xlstm()
+    if "vlm" in phases:
+        log("== paligemma-3b at published width: served as a text model, "
+            "then prefix-LM prefill over patches + decode")
+        launches["vlm"] = phase_vlm()
+    if "encoder" in phases:
+        log("== hubert-xlarge at published width: the encoder's "
+            "forward_train")
+        launches["encoder"] = phase_encoder()
     if "cli" in phases:
         log("== python -m repro_torch.launch.serve")
         phase_cli()

@@ -32,6 +32,10 @@ from repro_torch.core.overlap_engine import to_device
 from repro_torch.core.perf_model import (ModelCosts, TablePerfModel,
                                          host_kv_el_bytes, model_fingerprint)
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import \
+    check_geometry as decode_geometry
+from repro_torch.kernels.prefill_attention import \
+    check_geometry as prefill_geometry
 from repro_torch.kernels.host_paged_attention import \
     host_paged_attention_numpy
 from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
@@ -55,6 +59,8 @@ class OfflineProfiler:
                 "analytic or file:<path>")
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            self._check_kernel_geometry()
         self.host_kv_dtype = host_kv_dtype
         self.costs = ModelCosts.from_config(
             cfg, host_kv_bytes_per_el=host_kv_el_bytes(host_kv_dtype))
@@ -67,6 +73,25 @@ class OfflineProfiler:
                                          0, 0)
         self.inv_freq = rope_frequencies(cfg.resolved_head_dim,
                                          cfg.rope_theta, self.device)
+
+    def _check_kernel_geometry(self) -> None:
+        """Both attention kernels must take the config's head geometry.
+        A stack without attention (xLSTM) is priced, as in the reference,
+        with one attention layer of its head geometry (``ModelCosts``
+        counts at least one), which need not be one the kernels are built
+        for: xlstm-125m's head_dim is 192."""
+        cfg = self.cfg
+        for check in (decode_geometry, prefill_geometry):
+            try:
+                check(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+            except ValueError as e:
+                raise NotImplementedError(
+                    f"{cfg.name}: OfflineProfiler times one attention layer "
+                    f"of {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                    f"{cfg.resolved_head_dim} on the card, and the kernels "
+                    f"do not take it ({e}; the stack has "
+                    f"{cfg.num_attn_layers} attention layers; ROADMAP queue "
+                    "3); serve it with --perf-model analytic") from None
 
     # --- timing ----------------------------------------------------------
     def _time(self, fn: Callable[[], object], *, warmup: int = 2,
@@ -97,7 +122,11 @@ class OfflineProfiler:
         q, k, v = qkv_project(self.layer_params["attn"], x, cfg.num_heads,
                               cfg.num_kv_heads, cfg.resolved_head_dim,
                               positions, self.inv_freq)
-        return q, k, v, mlp(self.layer_params["ffn"], x)
+        # an xLSTM config's attention layer has no FFN (FFNKind.NONE), as
+        # in the reference's one-layer build
+        f = mlp(self.layer_params["ffn"], x) if "ffn" in self.layer_params \
+            else x
+        return q, k, v, f
 
     def profile_linear(self, token_counts: Sequence[int]) -> Table:
         """Fig. 1a: one layer's linear ops against token count, scaled to

@@ -15,7 +15,10 @@
 // design:
 //   * one launch per call.  grid (num_splits, KV, B): num_splits comes
 //     from the host (`plan_splits` in the wrapper: one wave of resident
-//     CTAs, four per SM, over B*KV); each row's split size is derived on
+//     CTAs over B*KV, the CTAs resident per SM taken from
+//     `apex_decode_attention_occupancy` for the instantiation at hand --
+//     four at D 128 in bf16, two at D 256, whose 3-stage ring alone is
+//     99 KB); each row's split size is derived on
 //     the device from its own length, round_up(ceil(len / num_splits),
 //     32), so every split that runs has real work and a CTA whose split
 //     starts at or past lengths[b] returns at once.  Positions >=
@@ -27,9 +30,10 @@
 //   * scores without a warp reduction per position: a thread owns a
 //     position and computes the dot products of its G/4 heads from the
 //     staged tile; the online softmax then runs once per tile and head
-//     (a warp per head, a lane per position, exp2f with scale*log2(e)
-//     folded into the scores); P·V gives each thread two adjacent
-//     output columns over a subset of the tile's positions;
+//     (a warp per head, warp w taking heads w, w + 4, ...; a lane per
+//     position; exp2f with scale*log2(e) folded into the scores); P·V
+//     gives each thread two adjacent output columns over a subset of
+//     the tile's positions (all 32 at D 256);
 //   * a row whose length fits one split writes its output directly; the
 //     splits of a longer row write fp32 partials (m, l, acc) into a
 //     workspace the wrapper allocates once, and the CTA that finishes
@@ -59,6 +63,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int NTH = 128;    // threads per CTA (4 warps)
 constexpr int TILE = 32;    // cache positions per staged tile
 constexpr int STAGES = 3;   // cp.async ring depth
+constexpr int NWARP = NTH / 32;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -127,7 +132,9 @@ struct Layout {
   static constexpr int LD = D + EPC;            // padded row (elements)
   static constexpr size_t tile_elems = (size_t)TILE * LD;
   static constexpr size_t ring_bytes = sizeof(TKV) * STAGES * 2 * tile_elems;
-  static constexpr int NPG = NTH / (D / 2);     // position groups of P·V
+  // position groups of P·V: threads past NPG * D/2 sit it out (48 of
+  // 128 at D 160)
+  static constexpr int NPG = NTH / (D / 2);
   static constexpr size_t red_bytes = sizeof(float) * NPG * G * D;
   static constexpr size_t q_off =
       ring_bytes > red_bytes ? ring_bytes : red_bytes;
@@ -205,10 +212,17 @@ __global__ void __launch_bounds__(NTH)
   for (int i = tid; i < G * D; i += NTH)
     q_s[i] = to_float(q[((size_t)b * H + (size_t)kvh * G) * D + i]);
 
-  // online-softmax state of heads warp and warp + 4 (warp-uniform)
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  // online-softmax state of heads warp, warp + 4, ... (warp-uniform)
+  constexpr int HPW = (G + NWARP - 1) / NWARP;  // head slots per warp
+  float m_r[HPW], l_r[HPW];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m_r[j] = kNegInf;
+    l_r[j] = 0.f;
+  }
   // P·V: columns 2*cp, 2*cp+1 over positions pg, pg + NPG, ...
   const int cp = tid % (D / 2), pg = tid / (D / 2);
+  const int pg_end = pg < L::NPG ? TILE : 0;  // positions this thread sums
   float acc[G][2];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
@@ -248,8 +262,8 @@ __global__ void __launch_bounds__(NTH)
 
     // online softmax once per tile and head: a warp per head
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int g = warp + 4 * j;
+    for (int j = 0; j < HPW; ++j) {
+      const int g = warp + NWARP * j;
       if (g < G) {
         const float s = p_s[g * TILE + lane];
         const float m_new = fmaxf(m_r[j], warp_max(s));
@@ -270,7 +284,7 @@ __global__ void __launch_bounds__(NTH)
       acc[g][1] *= c_s[g];
     }
 #pragma unroll 4
-    for (int r = pg; r < TILE; r += L::NPG) {
+    for (int r = pg; r < pg_end; r += L::NPG) {
       const TKV* vr = Vs + (size_t)r * L::LD + 2 * cp;
       const float v0 = to_float(vr[0]), v1 = to_float(vr[1]);
 #pragma unroll
@@ -285,14 +299,16 @@ __global__ void __launch_bounds__(NTH)
   __syncthreads();  // the ring is free for the reduction
 
   // fold the position groups; (m, l) of every head into shared memory
+  if (pg < L::NPG) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    red[((size_t)pg * G + g) * D + 2 * cp] = acc[g][0];
-    red[((size_t)pg * G + g) * D + 2 * cp + 1] = acc[g][1];
+    for (int g = 0; g < G; ++g) {
+      red[((size_t)pg * G + g) * D + 2 * cp] = acc[g][0];
+      red[((size_t)pg * G + g) * D + 2 * cp + 1] = acc[g][1];
+    }
   }
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int g = warp + 4 * j;
+  for (int j = 0; j < HPW; ++j) {
+    const int g = warp + NWARP * j;
     if (g < G && lane == 0) {
       ml_s[2 * g] = m_r[j];
       ml_s[2 * g + 1] = l_r[j];
@@ -348,70 +364,88 @@ __global__ void __launch_bounds__(NTH)
   }
 }
 
+// Sets the kernel's dynamic shared-memory limit once per instantiation.
 template <typename TQ, typename TKV, int D, int G>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* out, int* counters, float* part_ml, float* part_acc, int B,
-           int H, int KV, int S, int num_splits, cudaStream_t stream) {
-  using L = Layout<TKV, D, G>;
-  auto kern = decode_kernel<TQ, TKV, D, G>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+cudaError_t configure() {
+  static cudaError_t status = cudaFuncSetAttribute(
+      decode_kernel<TQ, TKV, D, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Layout<TKV, D, G>::bytes);
+  return status;
+}
+
+struct Launch {
+  const void *q, *k, *v;
+  const int* lengths;
+  void* out;
+  int* counters;
+  float *part_ml, *part_acc;
+  int B, H, KV, S, num_splits;
+  cudaStream_t stream;
+
+  template <typename TQ, typename TKV, int D, int G>
+  int run() const {
+    const cudaError_t e = configure<TQ, TKV, D, G>();
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    using L = Layout<TKV, D, G>;
+    const float scale_log2 = kLog2e / sqrtf((float)D);
+    auto kern = decode_kernel<TQ, TKV, D, G>;
+    APEX_LAUNCH(kern, dim3(num_splits, KV, B), dim3(NTH), L::bytes, stream,
+                (const TQ*)q, (const TKV*)k, (const TKV*)v, lengths,
+                (TQ*)out, counters, part_ml, part_acc, H, KV, S, num_splits,
+                scale_log2);
+    return 0;
   }
-  const float scale_log2 = kLog2e / sqrtf((float)D);
-  APEX_LAUNCH(kern, dim3(num_splits, KV, B), dim3(NTH), L::bytes, stream,
-              (const TQ*)q, (const TKV*)k, (const TKV*)v, lengths, (TQ*)out,
-              counters, part_ml, part_acc, H, KV, S, num_splits, scale_log2);
-  return 0;
+};
+
+// CTAs of one instantiation resident on an SM, by the runtime's own
+// reckoning of its registers and shared memory.
+struct Occupancy {
+  int* blocks;
+
+  template <typename TQ, typename TKV, int D, int G>
+  int run() const {
+    const cudaError_t e = configure<TQ, TKV, D, G>();
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, decode_kernel<TQ, TKV, D, G>, NTH,
+        Layout<TKV, D, G>::bytes);
+  }
+};
+
+template <typename TQ, typename TKV, int D, typename Op>
+int by_group(int G, const Op& op) {
+  switch (G) {
+    case 1: return op.template run<TQ, TKV, D, 1>();
+    case 2: return op.template run<TQ, TKV, D, 2>();
+    case 4: return op.template run<TQ, TKV, D, 4>();
+    case 6: return op.template run<TQ, TKV, D, 6>();
+    case 8: return op.template run<TQ, TKV, D, 8>();
+    case 16: return op.template run<TQ, TKV, D, 16>();
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-template <typename TQ, typename TKV, int D>
-int dispatch_group(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, int* counters,
-                   float* part_ml, float* part_acc, int B, int H, int KV,
-                   int S, int num_splits, cudaStream_t stream) {
-  switch (H / KV) {
-    case 1:
-      return launch<TQ, TKV, D, 1>(q, k, v, lengths, out, counters, part_ml,
-                                   part_acc, B, H, KV, S, num_splits, stream);
-    case 2:
-      return launch<TQ, TKV, D, 2>(q, k, v, lengths, out, counters, part_ml,
-                                   part_acc, B, H, KV, S, num_splits, stream);
-    case 4:
-      return launch<TQ, TKV, D, 4>(q, k, v, lengths, out, counters, part_ml,
-                                   part_acc, B, H, KV, S, num_splits, stream);
-    case 8:
-      return launch<TQ, TKV, D, 8>(q, k, v, lengths, out, counters, part_ml,
-                                   part_acc, B, H, KV, S, num_splits, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename TQ, typename TKV>
-int dispatch(const void* q, const void* k, const void* v, const int* lengths,
-             void* out, int* counters, float* part_ml, float* part_acc, int B,
-             int H, int KV, int S, int D, int num_splits,
-             cudaStream_t stream) {
+template <typename TQ, typename TKV, typename Op>
+int by_dim(int D, int G, const Op& op) {
   switch (D) {
-    case 32:
-      return dispatch_group<TQ, TKV, 32>(q, k, v, lengths, out, counters,
-                                         part_ml, part_acc, B, H, KV, S,
-                                         num_splits, stream);
-    case 64:
-      return dispatch_group<TQ, TKV, 64>(q, k, v, lengths, out, counters,
-                                         part_ml, part_acc, B, H, KV, S,
-                                         num_splits, stream);
-    case 128:
-      return dispatch_group<TQ, TKV, 128>(q, k, v, lengths, out, counters,
-                                          part_ml, part_acc, B, H, KV, S,
-                                          num_splits, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: return by_group<TQ, TKV, 32>(G, op);
+    case 64: return by_group<TQ, TKV, 64>(G, op);
+    case 128: return by_group<TQ, TKV, 128>(G, op);
+    case 160: return by_group<TQ, TKV, 160>(G, op);
+    case 256: return by_group<TQ, TKV, 256>(G, op);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename Op>
+int by_types(int q_bf16, int kv_bf16, int D, int G, const Op& op) {
+  if (q_bf16 && kv_bf16)
+    return by_dim<__nv_bfloat16, __nv_bfloat16>(D, G, op);
+  if (!q_bf16 && !kv_bf16) return by_dim<float, float>(D, G, op);
+  if (!q_bf16 && kv_bf16)  // fp32 model over the bf16 KV cache
+    return by_dim<float, __nv_bfloat16>(D, G, op);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -424,23 +458,17 @@ extern "C" int apex_decode_attention(const void* q, const void* k,
                                      void* part_acc, int B, int H, int KV,
                                      int S, int D, int q_bf16, int kv_bf16,
                                      int num_splits, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int* lens = (const int*)lengths;
-  int* cnt = (int*)counters;
-  float* pml = (float*)part_ml;
-  float* pacc = (float*)part_acc;
-  int rc = (int)cudaErrorInvalidValue;
-  if (num_splits < 1) return rc;
-  if (q_bf16 && kv_bf16)
-    rc = dispatch<__nv_bfloat16, __nv_bfloat16>(q, k, v, lens, out, cnt, pml,
-                                                pacc, B, H, KV, S, D,
-                                                num_splits, st);
-  else if (!q_bf16 && !kv_bf16)
-    rc = dispatch<float, float>(q, k, v, lens, out, cnt, pml, pacc, B, H, KV,
-                                S, D, num_splits, st);
-  else if (!q_bf16 && kv_bf16)  // fp32 model over the bf16 KV cache
-    rc = dispatch<float, __nv_bfloat16>(q, k, v, lens, out, cnt, pml, pacc, B,
-                                        H, KV, S, D, num_splits, st);
+  if (num_splits < 1 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  const Launch op{q, k, v, (const int*)lengths, out, (int*)counters,
+                  (float*)part_ml, (float*)part_acc, B, H, KV, S,
+                  num_splits, (cudaStream_t)stream};
+  const int rc = by_types(q_bf16, kv_bf16, D, H / KV, op);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// CTAs per SM of the instantiation for (D, G, dtypes), into *blocks.
+extern "C" int apex_decode_attention_occupancy(int D, int G, int q_bf16,
+                                               int kv_bf16, int* blocks) {
+  return by_types(q_bf16, kv_bf16, D, G, Occupancy{blocks});
 }

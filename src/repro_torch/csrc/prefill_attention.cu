@@ -16,12 +16,21 @@
 // that only loads and stores runs close to the full kernel's time
 // (tools/attention_variants.py times both; PERF.md has the numbers).
 // The bf16 design (FlashAttention-2's register layout on mma.sync):
-//   * one CTA per (16-query block, group of GH = min(G, 4) query heads of
-//     one kv head, batch row), one warp per head: every 32-key K/V tile
-//     is loaded once for the GH heads it serves (Jamba's G 8 takes two
-//     CTAs per kv head).  The main shape is 8 x 8 x 8 = 512 CTAs of 128
-//     threads, four resident per SM (128 registers, 52 KB of shared
-//     memory): one wave, the longest causal walks dispatched first.
+//   * one CTA per (16-query block, group of GH query heads of one kv
+//     head, batch row), one warp per head: every 32-key K/V tile is
+//     loaded once for the GH heads it serves.  GH is G up to 4, 3 at
+//     G 6 (two CTAs per kv head, each K/V tile read twice where GH 2
+//     would read it three times), else 4 (Jamba's and PaliGemma's G 8
+//     take two CTAs per kv head, llama3-405b's G 16 four).  The main
+//     shape is 8 x 8 x 8 = 512 CTAs of 128 threads, four resident per
+//     SM (128 registers, 52 KB of shared memory): one wave, the longest
+//     causal walks dispatched first.
+//   * head_dims above 128 (StableLM's 160, PaliGemma's 256): the warp's
+//     16 x 256 fp32 output accumulator alone is 128 registers a lane,
+//     so these are built for two CTAs per SM (255 registers a lane; at
+//     D 256 the Q block and ring take 99 KB of shared memory, so no more
+//     than two fit anyway); D 80 (HuBERT) keeps four.  build.py compiles with -Xptxas -v and
+//     chip_smoke.py prints every instantiation's registers and spills.
 //     Blocks of 64 queries (16 warps, 128 CTAs, one per SM) were slower:
 //     each SM then runs one CTA through load, products and stores in
 //     turn, with nothing to overlap;
@@ -42,7 +51,9 @@
 //     against SDPA.
 // fp32 q (the exactness models, over an fp32 or a bf16 cache) runs a
 // plain-FMA kernel: TF32 would break the 1e-5 bar against the fp32
-// oracle, and its speed is not on the serving path.
+// oracle, and its speed is not on the serving path.  At D 256 a CTA takes
+// 32 query rows instead of 64 (64 output accumulators a thread; its Q,
+// K and V blocks then take 177 KB of shared memory, one CTA per SM).
 //
 // Invariants of both kernels: kv tiles are walked in absolute tile
 // order (tile j = keys [32j, 32j+32) here, [64j, 64j+64) in the FMA
@@ -81,7 +92,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int MBQ = 16;        // query rows (tokens) per CTA: one warp's
 constexpr int MBK = 32;        // keys per kv tile
 constexpr int STAGES = 2;      // K/V tiles in the cp.async ring
-constexpr int kMinBlocks = 4;  // CTAs per SM the register budget allows
+
+// CTAs per SM the register budget is built for: 4 (128 registers a lane
+// at 128 threads), 2 above D 128 (the output accumulator: 80 registers a
+// lane at D 160, 128 at D 256)
+constexpr int mma_min_blocks(int d) { return d > 128 ? 2 : 4; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -160,7 +175,7 @@ __device__ __forceinline__ void load_kv_tile(
 }
 
 template <int D, int GH>
-__global__ void __launch_bounds__(32 * GH, kMinBlocks)
+__global__ void __launch_bounds__(32 * GH, mma_min_blocks(D))
     prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -383,15 +398,19 @@ int dispatch_mma(const void* q, const void* k, const void* v,
                  const int* prefix_len, const int* q_offset, void* out, int B,
                  int T_len, int S, int H, int KV, int causal,
                  cudaStream_t stream) {
-  switch (H / KV) {  // heads per CTA: min(G, 4)
+  switch (H / KV) {  // heads per CTA: G up to 4, 3 at G 6, else 4
     case 1:
       return launch_mma<D, 1>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
                               H, KV, causal, stream);
     case 2:
       return launch_mma<D, 2>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
                               H, KV, causal, stream);
+    case 6:
+      return launch_mma<D, 3>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
+                              H, KV, causal, stream);
     case 4:
     case 8:
+    case 16:
       return launch_mma<D, 4>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
                               H, KV, causal, stream);
     default:
@@ -403,7 +422,6 @@ int dispatch_mma(const void* q, const void* k, const void* v,
 // fp32 query (fp32 or bf16 cache): plain FMA, exact against the oracle
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;   // query rows per CTA of the FMA kernel
 constexpr int BK = 64;   // keys per kv tile of the FMA kernel
 constexpr int NT = 128;  // threads per CTA of the FMA kernel
 
@@ -416,6 +434,10 @@ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
 template <typename TKV, int D>
 struct FmaSmem {
+  // query rows per CTA: 64, or 32 above D 128 (at D 256, 64 rows held 128
+  // output accumulators a thread: 255 registers and 1.6 KB of spills)
+  static constexpr int BQ = D > 128 ? 32 : 64;
+  static constexpr int LPR = NT / BQ;  // lanes per row in the softmax
   static constexpr int LDQ = D + 1;   // Q/K/V rows (elements)
   static constexpr int LDS = BK + 4;  // fp32 scores / probabilities
   static constexpr size_t q_off = 0;
@@ -437,6 +459,7 @@ __global__ void __launch_bounds__(NT)
                        float* __restrict__ out, int T_len, int S, int H,
                        int KV, int causal, float scale) {
   using L = FmaSmem<TKV, D>;
+  constexpr int BQ = L::BQ;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::q_off);
   TKV* Ks = reinterpret_cast<TKV*>(smem + L::k_off);
@@ -500,32 +523,37 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
 
-    // mask + online softmax: two adjacent lanes per query row
+    // mask + online softmax: LPR adjacent lanes per query row
     {
-      const int r = tid >> 1;
-      const int half = tid & 1;
+      const int r = tid / L::LPR;
+      const int part = tid % L::LPR;
       const int qpos = qoff + q0 + r;
       float* srow = Ss + r * L::LDS;
-      const int c0 = half * (BK / 2);
+      constexpr int CPL = BK / L::LPR;  // columns per lane
+      const int c0 = part * CPL;
       float mx = kNegInf;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
+      for (int c = c0; c < c0 + CPL; ++c) {
         const int kidx = kt * BK + c;
         const bool ok = kidx < S && (!causal || kidx <= qpos || kidx < pre);
         const float s = ok ? srow[c] * scale : kNegInf;
         srow[c] = s;
         mx = fmaxf(mx, s);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+#pragma unroll
+      for (int o = 1; o < L::LPR; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_prev = row_m[r];
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
+      for (int c = c0; c < c0 + CPL; ++c) {
         const float p = expf(srow[c] - m_new);
         srow[c] = p;
         sum += p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if (half == 0) {
+#pragma unroll
+      for (int o = 1; o < L::LPR; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (part == 0) {
         const float corr = expf(m_prev - m_new);
         row_c[r] = corr;
         row_l[r] = row_l[r] * corr + sum;
@@ -572,7 +600,7 @@ int launch_fma(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid((T_len + BQ - 1) / BQ, H, B);
+  dim3 grid((T_len + L::BQ - 1) / L::BQ, H, B);
   const float scale = 1.0f / sqrtf((float)D);
   APEX_LAUNCH(kern, grid, dim3(NT), L::bytes, stream, (const float*)q,
               (const TKV*)k, (const TKV*)v, prefix_len, q_offset,
@@ -592,8 +620,17 @@ int dispatch_fma(const void* q, const void* k, const void* v,
     case 64:
       return launch_fma<TKV, 64>(q, k, v, prefix_len, q_offset, out, B, T_len,
                                  S, H, KV, causal, stream);
+    case 80:
+      return launch_fma<TKV, 80>(q, k, v, prefix_len, q_offset, out, B, T_len,
+                                 S, H, KV, causal, stream);
     case 128:
       return launch_fma<TKV, 128>(q, k, v, prefix_len, q_offset, out, B,
+                                  T_len, S, H, KV, causal, stream);
+    case 160:
+      return launch_fma<TKV, 160>(q, k, v, prefix_len, q_offset, out, B,
+                                  T_len, S, H, KV, causal, stream);
+    case 256:
+      return launch_fma<TKV, 256>(q, k, v, prefix_len, q_offset, out, B,
                                   T_len, S, H, KV, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -622,8 +659,20 @@ extern "C" int apex_prefill_attention(const void* q, const void* k,
         rc = dispatch_mma<64>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
                               causal, st);
         break;
+      case 80:
+        rc = dispatch_mma<80>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
+                              causal, st);
+        break;
       case 128:
         rc = dispatch_mma<128>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
+                               causal, st);
+        break;
+      case 160:
+        rc = dispatch_mma<160>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
+                               causal, st);
+        break;
+      case 256:
+        rc = dispatch_mma<256>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
                                causal, st);
         break;
       default:

@@ -3,7 +3,7 @@
 Replaces the Pallas TPU kernel ``repro/kernels/prefill_attention.py``
 (``prefill_attention`` / ``_prefill_kernel``).  FlashAttention-2 style:
 a CTA takes a 16-query block of up to four query heads of one kv head
-(a warp per head) and walks 32-key tiles in absolute order up to the
+(a warp per head; three at group 6) and walks 32-key tiles in absolute order up to the
 block's causal limit, K/V streaming through a cp.async ring.  bf16 runs
 both products on tensor cores (mma.sync, fp32 accumulate, scores and
 probabilities in registers); an fp32 query uses plain FMA.  Tile
@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8)                # query heads per kv head
+HEAD_DIMS = (32, 64, 80, 128, 160, 256)
+GROUPS = (1, 2, 4, 6, 8, 16)         # query heads per kv head
 # (q, kv) dtypes: one type throughout, or an fp32 model over the bf16 cache
 DTYPE_PAIRS = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
@@ -59,6 +59,15 @@ def _row_vector(x: Optional[torch.Tensor], b: int, device: torch.device,
     return x
 
 
+def check_geometry(h: int, kv: int, d: int) -> None:
+    """Raise ``ValueError`` unless the kernel is built for H query heads
+    over KV kv heads of head_dim D."""
+    if kv < 1 or h % kv or h // kv not in GROUPS:
+        raise ValueError(f"H/KV = {h}/{kv} not in {GROUPS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not q.is_cuda:
         raise ValueError("prefill_attention_cuda takes CUDA tensors")
@@ -70,10 +79,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head_dim")
-    if h % k.shape[2] or h // k.shape[2] not in GROUPS:
-        raise ValueError(f"H/KV = {h}/{k.shape[2]} not in {GROUPS}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    check_geometry(h, k.shape[2], d)
     if (q.dtype, k.dtype) not in DTYPE_PAIRS or v.dtype != k.dtype:
         raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: "
                          f"want (q, k=v) in {DTYPE_PAIRS}")

@@ -28,16 +28,16 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config
-from repro_torch.models import check_supported, init_params
+from repro_torch.configs import get_config, list_archs
+from repro_torch.models import init_params
 from repro_torch.serving import InferenceServer, ServerConfig
-from repro_torch.serving.engine import resolve_device
+from repro_torch.serving.engine import check_servable, resolve_device
 from repro_torch.serving.workloads import WORKLOADS
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.1-8b")
+    ap.add_argument("--arch", default="llama3.1-8b", choices=list_archs())
     ap.add_argument("--published", action="store_true",
                     help="serve the architecture at its published width "
                          "(bf16); --layers, when given, cuts depth")
@@ -134,9 +134,9 @@ def main() -> None:
     else:
         cfg = base.reduced(layers=args.layers or 4, d_model=args.d_model,
                            vocab=512)
-    # an architecture the port cannot run yet (Jamba's MoE FFN) fails here
-    # with the ROADMAP item that brings it, before any device is touched
-    check_supported(cfg)
+    # an encoder has no decode to serve: refused here, before any device
+    # is touched
+    check_servable(cfg)
     device = resolve_device(args.device)
     scfg = ServerConfig(
         device_slots=args.device_slots, host_slots=args.host_slots,

@@ -1,15 +1,17 @@
-"""Model of the port: config, layers, KV and Mamba state, the block stack."""
+"""Model of the port: config, layers, KV and recurrent state, the block
+stack."""
 from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
 from repro_torch.models.model import (ModelParams, decode_step,
                                       decode_with_chunked_prefill,
+                                      forward_hidden, forward_train,
                                       init_decode_state, init_params,
                                       params_from_numpy, prefill,
                                       prefill_bucketed, prefill_chunk)
-from repro_torch.models.transformer import HostIO, QKVOut, check_supported
+from repro_torch.models.transformer import HostIO, QKVOut
 
 __all__ = [
     "BlockKind", "FFNKind", "ModelConfig", "ModelParams", "decode_step",
-    "decode_with_chunked_prefill", "init_decode_state", "init_params",
-    "params_from_numpy", "prefill", "prefill_bucketed", "prefill_chunk",
-    "HostIO", "QKVOut", "check_supported",
+    "decode_with_chunked_prefill", "forward_hidden", "forward_train",
+    "init_decode_state", "init_params", "params_from_numpy", "prefill",
+    "prefill_bucketed", "prefill_chunk", "HostIO", "QKVOut",
 ]

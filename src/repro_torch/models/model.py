@@ -1,12 +1,23 @@
-"""Public model API: init / weight import / prefill (whole, bucketed,
-chunked) / decode, and the fused decode + prefill-chunk iteration.
+"""Public model API: init / weight import / the stateless forward /
+prefill (whole, bucketed, chunked) / decode, and the fused decode +
+prefill-chunk iteration; every entry point that allocates takes an
+explicit ``device``.
 
-Causal stacks of attention and Mamba blocks with dense or MoE FFNs and
-token inputs; every entry point takes an explicit ``device``.
+Inputs per frontend (the modality frontends are stubs, as in the
+reference: the caller provides precomputed embeddings):
+
+  * ``none``   -- ``tokens`` (B, T)
+  * ``audio``  -- ``embeds`` (B, T, d_model) frame embeddings (HuBERT)
+  * ``vision`` -- ``patches`` (B, P, d_model) + ``tokens`` (B, T); the
+                  patches form a bidirectional (prefix-LM) prefix ahead
+                  of the text (PaliGemma).
+
+The serving paths (bucketed and chunked prefill, decode) take token ids,
+as the reference's engine does.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,18 +110,63 @@ def _logits(params: ModelParams, cfg: ModelConfig,
                    rmsnorm(params.final_norm, x, cfg.norm_eps))
 
 
+def _embed_inputs(params: ModelParams, cfg: ModelConfig,
+                  inputs: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x (B, T, d), prefix_len (B,) int32 or None) per the frontend."""
+    compute = getattr(torch, cfg.compute_dtype)
+    if cfg.frontend == "audio":
+        return inputs["embeds"].to(compute), None
+    if cfg.frontend == "vision":
+        patches = inputs["patches"].to(compute)
+        x = torch.cat([patches, embed(params.embedding, inputs["tokens"])],
+                      dim=1)
+        prefix = torch.full((x.shape[0],), patches.shape[1],
+                            dtype=torch.int32, device=x.device)
+        return x, prefix
+    return embed(params.embedding, inputs["tokens"]), None
+
+
+def forward_hidden(params: ModelParams, cfg: ModelConfig,
+                   inputs: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stateless forward up to the final norm: (hidden (B, T, d), the
+    summed MoE load-balance loss (0 without experts)).  A forward only:
+    gradients come with training."""
+    x, prefix = _embed_inputs(params, cfg, inputs)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=x.device)[None, :].expand(b, t)
+    aux: List[torch.Tensor] = []
+    x, _ = transformer.stack_forward(params.blocks, cfg, x, positions, None,
+                                     prefix_len=prefix, aux=aux)
+    total = sum(aux, torch.zeros((), dtype=torch.float32, device=x.device))
+    return rmsnorm(params.final_norm, x, cfg.norm_eps), total
+
+
+def forward_train(params: ModelParams, cfg: ModelConfig,
+                  inputs: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stateless forward of every position: (logits (B, T, V), aux
+    loss).  The encoder's (``causal=False``) path; on the VLM, T counts
+    the patches too."""
+    x, aux = forward_hidden(params, cfg, inputs)
+    return unembed(params.embedding, x), aux
+
+
 def prefill(params: ModelParams, cfg: ModelConfig,
             inputs: Dict[str, torch.Tensor], state: StackState
             ) -> Tuple[torch.Tensor, StackState]:
-    """Process a prompt ``inputs["tokens"]`` (B, T), filling ``state``
-    in place.  Returns (last-token logits (B, V), new_state)."""
-    tokens = inputs["tokens"]
-    x = embed(params.embedding, tokens)
-    t = tokens.shape[1]
+    """Process a prompt (``inputs`` per the frontend), filling ``state``
+    in place: on the VLM the patches first, attended bidirectionally.
+    Returns (last-position logits (B, V), new_state)."""
+    x, prefix = _embed_inputs(params, cfg, inputs)
+    t = x.shape[1]
     positions = state.lengths[:, None] + torch.arange(
-        t, dtype=torch.int32, device=tokens.device)[None, :]
+        t, dtype=torch.int32, device=x.device)[None, :]
     x, new_state = transformer.stack_forward(params.blocks, cfg, x,
-                                             positions, state)
+                                             positions, state,
+                                             prefix_len=prefix)
     return _logits(params, cfg, x[:, -1]), new_state
 
 
@@ -125,7 +181,7 @@ def prefill_bucketed(params: ModelParams, cfg: ModelConfig,
     prompt_lens: (B,) real lengths on the same device.  Returns logits of
     each prompt's last real token and a fresh filled decode state.
     Exact: causal masking hides padded positions from every real one, and
-    Mamba blocks freeze their state at ``prompt_lens[b]``.
+    recurrent blocks freeze their state at ``prompt_lens[b]``.
     """
     b, t = tokens.shape
     state = init_decode_state(cfg, device_batch=b, cache_len=cache_len,
@@ -151,8 +207,8 @@ def prefill_chunk(params: ModelParams, cfg: ModelConfig,
     ``state`` is the staging state, whose ``lengths`` count each row's
     tokens already prefilled.  Queries run at absolute positions
     ``lengths + i`` against the accumulated K/V, so causality hides every
-    padded or idle position; Mamba blocks resume their carried state and
-    freeze at ``chunk_lens[b]``.  K/V and state are written in place.
+    padded or idle position; recurrent blocks resume their carried state
+    and freeze at ``chunk_lens[b]``.  K/V and state are written in place.
 
     Returns (logits (B, V) of each row's last real chunk token -- only
     meaningful for rows whose prompt completes in this chunk -- and the

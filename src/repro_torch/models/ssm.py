@@ -1,30 +1,36 @@
-"""Mamba-1 block: the recurrent half of the hybrid (Jamba-family) stacks.
+"""Recurrent blocks: the Mamba-1 block of the hybrid (Jamba-family)
+stacks and the xLSTM blocks (sLSTM, mLSTM).
 
-Port of the Mamba part of ``repro/models/ssm.py``.  The contract:
+Port of ``repro/models/ssm.py``.  Every block has the same contract:
 
-  * ``mamba_init(cfg, d_model, gen, ...)``         -- random parameters
-  * ``mamba_init_state(cfg, d_model, batch, ...)`` -- zero decode state
-  * ``mamba_forward(params, cfg, x, state, valid_lens, h_out)``
-                                                 -> (y, new_state)
-  * ``mamba_forward_chunk(params, cfg, x, state, chunk_lens, ...)`` --
-    the same block resuming a chunked prefill from its carried state
+  * ``<kind>_init(...)``                        -- random parameters
+  * ``<kind>_init_state(...)``                  -- zero decode state
+  * ``<kind>_forward(params, ..., x, state, valid_lens)``
+                                              -> (y, new_state)
+  * ``<kind>_forward_chunk(..., chunk_lens, q_offset)`` -- the same block
+    resuming a chunked prefill from its carried state
 
-``x`` is (B, T, d_model); decode is the same block at T = 1.  The
-selective scan itself runs in ``kernels.ops.mamba_selective_scan`` (the
+``x`` is (B, T, d_model); decode is the same block at T = 1.  The Mamba
+selective scan runs in ``kernels.ops.mamba_selective_scan`` (the
 hand-written CUDA kernel on the card, its plain loop on the CPU), where
-the reference runs a ``lax.scan``.
+the reference runs a ``lax.scan``.  The xLSTM recurrences have no kernel
+in either package: the reference runs them as ``lax.scan``s, the port as
+Python loops over time of PyTorch ops.
 
 Length-masked scan: ``valid_lens`` (B,) int32 counts the real tokens of
-each row in this call.  The scan freezes a row's carry past its length
-and the rolling conv window is gathered at the row's true end, so a
+each row in this call.  Every block freezes a row's carry past its
+length and gathers its rolling conv window at the row's true end, so a
 right-padded batch carries bit-identical state to unpadded per-request
 runs, and a row with length 0 keeps its state bit for bit (the decode
 step passes the host rows' commit mask this way).
 
-dtype steps follow the reference exactly: the conv window is stored in
-bf16 whatever the parameter dtype; the depthwise conv and its SiLU run
-in fp32 and cast to x's dtype; dt is ``softplus`` in fp32; the scan
-inputs are fp32; ``y`` is cast to x's dtype before the ``silu(z)`` gate.
+dtype steps follow the reference exactly: the conv windows are stored in
+bf16 whatever the parameter dtype; the depthwise convs and their SiLU
+run in fp32 and cast to x's dtype; Mamba's dt is ``softplus`` in fp32
+and its scan inputs are fp32; the xLSTM cells run in fp32 with
+exponential gates stabilised by the running maximum ``m`` (mLSTM's
+forget gate through ``log_sigmoid``), and their hidden states are cast
+to x's dtype before the output projections.
 """
 from __future__ import annotations
 
@@ -163,3 +169,248 @@ def mamba_forward_chunk(params: Params, cfg: MambaConfig, x: torch.Tensor,
     row with ``chunk_lens`` 0 keeps its state bit for bit."""
     del q_offset
     return mamba_forward(params, cfg, x, state, chunk_lens, h_out)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM -- sLSTM (scalar memory) and mLSTM (matrix memory)
+# ---------------------------------------------------------------------------
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor   # (B, H, hd) fp32 cell
+    n: torch.Tensor   # (B, H, hd) fp32 normaliser
+    h: torch.Tensor   # (B, H, hd) fp32 hidden (the recurrent input)
+    m: torch.Tensor   # (B, H, hd) fp32 stabiliser
+
+
+class MLSTMState(NamedTuple):
+    """The mLSTM block's state.  The reference nests the cell's state
+    (``MLSTMState(cmat, n, m)``) inside ``MLSTMBlockState(cell, conv)``;
+    here the four tensors are one flat tuple, so every row move that
+    walks an entry's tensors (``serving.tiermove``) takes it as it
+    takes Mamba's."""
+
+    cmat: torch.Tensor  # (B, H, hd, hd) fp32 matrix memory
+    n: torch.Tensor     # (B, H, hd) fp32 normaliser
+    m: torch.Tensor     # (B, H) fp32 stabiliser
+    conv: torch.Tensor  # (B, 3, inner) bf16 rolling conv window
+
+
+# the stabiliser's initial value: exp(x - m) of the first step is then
+# exp(x - max(x, f - 1e30)) = 1
+M_INIT = -1e30
+MLSTM_PROJ_FACTOR = 2       # mLSTM inner width = 2 * d_model
+MLSTM_CONV = 4              # mLSTM causal depthwise conv width
+
+
+def slstm_init(d_model: int, num_heads: int, gen: torch.Generator, *,
+               groups: int, dtype: torch.dtype,
+               device: torch.device) -> Params:
+    """Random sLSTM parameters of ``groups`` stacked blocks in the
+    reference's names and layout: input gates (d, 4d), per-head recurrent
+    gates (H, hd, 4hd) drawn normal / sqrt(hd), fp32 gate bias, the
+    (d, d) output projection."""
+    hd = d_model // num_heads
+
+    def dense(i, o):
+        return dense_init_(torch.empty((groups, i, o), dtype=dtype,
+                                       device=device), gen)
+
+    p = {"w_gates": dense(d_model, 4 * d_model)}
+    r = torch.randn((groups, num_heads, hd, 4 * hd), generator=gen,
+                    dtype=torch.float32, device=device) / math.sqrt(hd)
+    p["r_gates"] = r.to(dtype)
+    p["b_gates"] = torch.zeros((groups, 4 * d_model), dtype=torch.float32,
+                               device=device)
+    p["down_proj"] = dense(d_model, d_model)
+    return p
+
+
+def mlstm_init(d_model: int, num_heads: int, gen: torch.Generator, *,
+               groups: int, dtype: torch.dtype,
+               device: torch.device) -> Params:
+    """Random mLSTM parameters of ``groups`` stacked blocks in the
+    reference's names and layout: the (d, 2 inner) up projection, the
+    conv taps drawn normal / 2 and a zero bias, the (inner, 3 inner)
+    q/k/v projection, fp32 (inner, 2H) input and forget gates, the
+    (inner, d) down projection."""
+    inner = MLSTM_PROJ_FACTOR * d_model
+
+    def dense(i, o, dt=dtype):
+        return dense_init_(torch.empty((groups, i, o), dtype=dt,
+                                       device=device), gen)
+
+    p = {"in_proj": dense(d_model, 2 * inner)}
+    conv = torch.randn((groups, inner, MLSTM_CONV), generator=gen,
+                       dtype=torch.float32, device=device) / 2.0
+    p["conv_w"] = conv.to(dtype)
+    p["conv_b"] = torch.zeros((groups, inner), dtype=dtype, device=device)
+    p["w_qkv"] = dense(inner, 3 * inner)
+    p["w_gates"] = dense(inner, 2 * num_heads, torch.float32)
+    p["down_proj"] = dense(inner, d_model)
+    return p
+
+
+def slstm_init_state(d_model: int, num_heads: int, batch: int, *,
+                     device: torch.device,
+                     groups: Optional[int] = None) -> SLSTMState:
+    """Zero cell, normaliser and hidden state, the stabiliser at -1e30;
+    a leading ``groups`` axis when given."""
+    lead = (batch,) if groups is None else (groups, batch)
+    shape = lead + (num_heads, d_model // num_heads)
+    zeros = [torch.zeros(shape, dtype=torch.float32, device=device)
+             for _ in range(3)]
+    return SLSTMState(*zeros, m=torch.full(shape, M_INIT,
+                                           dtype=torch.float32,
+                                           device=device))
+
+
+def mlstm_init_state(d_model: int, num_heads: int, batch: int, *,
+                     device: torch.device,
+                     groups: Optional[int] = None) -> MLSTMState:
+    """Zero matrix memory, normaliser and conv window, the stabiliser at
+    -1e30; a leading ``groups`` axis when given."""
+    lead = (batch,) if groups is None else (groups, batch)
+    inner = MLSTM_PROJ_FACTOR * d_model
+    hd = inner // num_heads
+    f32 = torch.float32
+    return MLSTMState(
+        cmat=torch.zeros(lead + (num_heads, hd, hd), dtype=f32,
+                         device=device),
+        n=torch.zeros(lead + (num_heads, hd), dtype=f32, device=device),
+        m=torch.full(lead + (num_heads,), M_INIT, dtype=f32, device=device),
+        conv=torch.zeros(lead + (MLSTM_CONV - 1, inner),
+                         dtype=torch.bfloat16, device=device))
+
+
+def _keep(valid_lens: Optional[torch.Tensor], t: int, ndim: int):
+    """(B, 1, ...) of rank ``ndim``: True where step t is a real token;
+    None when every token is real."""
+    if valid_lens is None:
+        return None
+    return (t < valid_lens).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _masked(keep: Optional[torch.Tensor], new: torch.Tensor,
+            old: torch.Tensor) -> torch.Tensor:
+    return new if keep is None else torch.where(keep, new, old)
+
+
+def slstm_forward(params: Params, x: torch.Tensor, state: SLSTMState,
+                  num_heads: int,
+                  valid_lens: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, SLSTMState]:
+    """x: (B, T, d) -> (y (B, T, d), new_state), one step per token.
+    Past a row's ``valid_lens`` its state, and the hidden state it
+    outputs, stay as they were (the reference's scan emits the masked
+    ``h``).  The state passed in is not modified."""
+    b, t, d = x.shape
+    hd = d // num_heads
+    gates_all = (x @ params["w_gates"]).float()                  # (B,T,4d)
+    r = params["r_gates"].float()                                 # (H,hd,4hd)
+    bias = params["b_gates"].reshape(num_heads, 4 * hd)
+    lens = None if valid_lens is None else valid_lens.to(x.device)
+    c, n, h, m = state
+    hs = []
+    for i in range(t):
+        rec = torch.einsum("bhd,hde->bhe", h, r)
+        gx = gates_all[:, i].reshape(b, num_heads, 4 * hd) + rec + bias
+        i_t, f_t, z_t, o_t = gx.chunk(4, dim=-1)
+        m_new = torch.maximum(f_t + m, i_t)
+        i_g = torch.exp(i_t - m_new)
+        f_g = torch.exp(f_t + m - m_new)
+        c_new = f_g * c + i_g * torch.tanh(z_t)
+        n_new = f_g * n + i_g
+        h_new = torch.sigmoid(o_t) * c_new / torch.clamp(n_new.abs(),
+                                                         min=1e-6)
+        keep = _keep(lens, i, 3)
+        c, n, h, m = (_masked(keep, new, old) for new, old in
+                      ((c_new, c), (n_new, n), (h_new, h), (m_new, m)))
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
+    return y @ params["down_proj"], SLSTMState(c=c, n=n, h=h, m=m)
+
+
+def _mlstm_conv(params: Params, xin: torch.Tensor, conv_state: torch.Tensor,
+                valid_lens: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal depthwise conv(4) with the rolling window: xin (B, T, I) ->
+    (SiLU(conv) in xin's dtype, the next window in xin's dtype).  The
+    shifted windows are multiplied and summed in fp32 (not F.conv1d,
+    which takes cuDNN's TF32 path on the card)."""
+    kdim = params["conv_w"].shape[-1]
+    t = xin.shape[1]
+    window = torch.cat([conv_state.to(xin.dtype), xin], dim=1)
+    conv_w = params["conv_w"].float()
+    out = window[:, 0:t].float() * conv_w[:, 0]
+    for k in range(1, kdim):
+        out = out + window[:, k:k + t].float() * conv_w[:, k]
+    out = F.silu(out + params["conv_b"].float())
+    if valid_lens is None:
+        new_conv = window[:, -(kdim - 1):]
+    else:
+        new_conv = _gather_conv_window(window, valid_lens, kdim - 1)
+    return out.to(xin.dtype), new_conv
+
+
+def mlstm_forward(params: Params, x: torch.Tensor, state: MLSTMState,
+                  num_heads: int,
+                  valid_lens: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, MLSTMState]:
+    """The mLSTM block body (the caller adds the residual): x (B, T, d)
+    -> (y (B, T, d), new_state), one step of the matrix memory per token.
+    Past a row's ``valid_lens`` its state stays as it was.  The state
+    passed in is not modified."""
+    b, t, _ = x.shape
+    xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)             # (B,T,I)
+    inner = xin.shape[-1]
+    hd = inner // num_heads
+    lens = None if valid_lens is None else valid_lens.to(x.device)
+    xc, new_conv = _mlstm_conv(params, xin, state.conv, lens)
+    q, k, v = (xc @ params["w_qkv"]).chunk(3, dim=-1)
+    q = q.reshape(b, t, num_heads, hd).float()
+    k = (k.reshape(b, t, num_heads, hd) / math.sqrt(hd)).float()
+    v = v.reshape(b, t, num_heads, hd).float()
+    i_pre, f_pre = (xc.float() @ params["w_gates"]).chunk(2, dim=-1)
+    f_pre = F.logsigmoid(f_pre)             # log-sigmoid forget gate
+    cmat, n, m = state.cmat, state.n, state.m
+    hs = []
+    for i in range(t):
+        qi, ki, vi = q[:, i], k[:, i], v[:, i]                    # (B,H,hd)
+        m_new = torch.maximum(f_pre[:, i] + m, i_pre[:, i])       # (B,H)
+        i_g = torch.exp(i_pre[:, i] - m_new)
+        f_g = torch.exp(f_pre[:, i] + m - m_new)
+        kv = vi[..., :, None] * ki[..., None, :]                 # (B,H,hd,hd)
+        c_new = f_g[..., None, None] * cmat + i_g[..., None, None] * kv
+        n_new = f_g[..., None] * n + i_g[..., None] * ki
+        num = torch.einsum("bhvk,bhk->bhv", c_new, qi)
+        den = torch.clamp(torch.einsum("bhk,bhk->bh", n_new, qi).abs(),
+                          min=1.0)[..., None]
+        hs.append(num / den)
+        cmat = _masked(_keep(lens, i, 4), c_new, cmat)
+        n = _masked(_keep(lens, i, 3), n_new, n)
+        m = _masked(_keep(lens, i, 2), m_new, m)
+    h = torch.stack(hs, dim=1).reshape(b, t, inner).to(x.dtype)
+    h = h * F.silu(z.float()).to(x.dtype)
+    return h @ params["down_proj"], MLSTMState(
+        cmat=cmat, n=n, m=m, conv=new_conv.to(state.conv.dtype))
+
+
+def slstm_forward_chunk(params: Params, x: torch.Tensor, state: SLSTMState,
+                        num_heads: int, chunk_lens: torch.Tensor,
+                        q_offset: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, SLSTMState]:
+    """Resume an sLSTM from the carried ``state`` (see
+    ``mamba_forward_chunk``)."""
+    del q_offset
+    return slstm_forward(params, x, state, num_heads, chunk_lens)
+
+
+def mlstm_forward_chunk(params: Params, x: torch.Tensor, state: MLSTMState,
+                        num_heads: int, chunk_lens: torch.Tensor,
+                        q_offset: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, MLSTMState]:
+    """Resume an mLSTM block from the carried ``state`` (see
+    ``mamba_forward_chunk``)."""
+    del q_offset
+    return mlstm_forward(params, x, state, num_heads, chunk_lens)

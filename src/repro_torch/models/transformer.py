@@ -1,5 +1,6 @@
-"""Block stack (attention and Mamba entries, dense or MoE FFNs): init,
-prefill forward, and the APEX unified decode step.
+"""Block stack (attention, Mamba, sLSTM and mLSTM entries; dense, MoE or
+no FFNs): init, the stateless forward, prefill, and the APEX unified
+decode step.
 
 Parameters and decode states carry a leading G (= num_groups) axis, as
 in the reference, so layer = g * period + j; the reference's ``lax.scan``
@@ -17,12 +18,17 @@ The decode step implements the paper's Asynchronous Overlap semantics
   * host rows commit residual updates only inside their layer window
     [window_start, window_end); elsewhere they ride along.
 
-Recurrent (Mamba) state spans every row of the unified batch: host rows
-keep their recurrent state on the device and commit it only inside their
-window, as their residual.  Attention caches hold the device rows only.
-KV caches and recurrent states are written in place (the reference's
-``.at[].set`` on donated buffers), so the state passed in is the state
-updated.
+Recurrent (Mamba, xLSTM) state spans every row of the unified batch:
+host rows keep their recurrent state on the device and commit it only
+inside their window, as their residual.  Attention caches hold the
+device rows only.  KV caches and recurrent states are written in place
+(the reference's ``.at[].set`` on donated buffers), so the state passed
+in is the state updated.
+
+Attention takes ``cfg.causal`` and a prefix-LM ``prefix_len`` (the VLM's
+patch prefix) into ``kernels.ops.prefill_attention`` on every forward;
+the stateless forward (``model.forward_train``) attends over the span
+itself, as the reference's does.
 
 An entry's FFN is an MoE (``models.moe``) where
 ``cfg.ffn_kind_for_entry(j)`` says so at init (every ``moe_period``-th
@@ -34,7 +40,7 @@ positions too, as the reference does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,23 +77,6 @@ class QKVOut(NamedTuple):
     v: torch.Tensor  # (Bc, KV, D)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a stack the port cannot run yet,
-    naming the ROADMAP item that brings it."""
-    other = sorted({k.value for k in cfg.block_pattern}
-                   - {BlockKind.ATTN.value, BlockKind.MAMBA.value})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(other)} blocks are not ported yet "
-            "(xLSTM, ROADMAP queue 1 item 7)")
-    if cfg.ffn_kind not in (FFNKind.DENSE, FFNKind.MOE) \
-            or cfg.frontend != "none" or not cfg.causal:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs causal stacks of attention and "
-            "Mamba blocks with dense or MoE FFNs and token inputs (the "
-            "encoder and VLM frontends: ROADMAP queue 1 item 12)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -96,8 +85,8 @@ def check_supported(cfg: ModelConfig) -> None:
 def stack_init(cfg: ModelConfig, gen: torch.Generator,
                device: torch.device) -> Tuple[Params, ...]:
     """Random blocks: a tuple over pattern entries, leaves (G, ...), with
-    the reference's parameter names."""
-    check_supported(cfg)
+    the reference's parameter names.  Attention and Mamba entries carry
+    an FFN unless the config's kind is NONE; xLSTM entries carry none."""
     dt = getattr(torch, cfg.param_dtype)
     d, hd, g = cfg.d_model, cfg.resolved_head_dim, cfg.num_groups
 
@@ -110,18 +99,28 @@ def stack_init(cfg: ModelConfig, gen: torch.Generator,
 
     out = []
     for j, kind in enumerate(cfg.block_pattern):
+        p: Params = {"ln1": {"scale": ones()}}
         if kind == BlockKind.ATTN:
-            p = {"ln1": {"scale": ones()},
-                 "attn": {"wq": dense(d, cfg.num_heads * hd),
-                          "wk": dense(d, cfg.num_kv_heads * hd),
-                          "wv": dense(d, cfg.num_kv_heads * hd),
-                          "wo": dense(cfg.num_heads * hd, d)}}
+            p["attn"] = {"wq": dense(d, cfg.num_heads * hd),
+                         "wk": dense(d, cfg.num_kv_heads * hd),
+                         "wv": dense(d, cfg.num_kv_heads * hd),
+                         "wo": dense(cfg.num_heads * hd, d)}
+        elif kind == BlockKind.MAMBA:
+            p["mamba"] = ssm.mamba_init(cfg.mamba, d, gen, groups=g,
+                                        dtype=dt, device=device)
         else:
-            p = {"ln1": {"scale": ones()},
-                 "mamba": ssm.mamba_init(cfg.mamba, d, gen, groups=g,
-                                         dtype=dt, device=device)}
+            init = ssm.slstm_init if kind == BlockKind.SLSTM \
+                else ssm.mlstm_init
+            p[kind.value] = init(d, cfg.num_heads, gen, groups=g, dtype=dt,
+                                 device=device)
+            out.append(p)
+            continue
+        ffn_kind = cfg.ffn_kind_for_entry(j)
+        if ffn_kind == FFNKind.NONE:
+            out.append(p)
+            continue
         p["ln2"] = {"scale": ones()}
-        if cfg.ffn_kind_for_entry(j) == FFNKind.MOE:
+        if ffn_kind == FFNKind.MOE:
             p["ffn"] = moe.moe_init(d, cfg.moe, gen, groups=g, dtype=dt,
                                     device=device)
         else:
@@ -132,23 +131,33 @@ def stack_init(cfg: ModelConfig, gen: torch.Generator,
     return tuple(out)
 
 
+def recurrent_state_init(cfg: ModelConfig, kind: BlockKind, batch: int,
+                         device: torch.device):
+    """Zero state of one recurrent pattern entry for ``batch`` rows,
+    stacked over the G groups (the xLSTM stabilisers at -1e30)."""
+    if kind == BlockKind.MAMBA:
+        return ssm.mamba_init_state(cfg.mamba, cfg.d_model, batch,
+                                    device=device, groups=cfg.num_groups)
+    init = ssm.slstm_init_state if kind == BlockKind.SLSTM \
+        else ssm.mlstm_init_state
+    return init(cfg.d_model, cfg.num_heads, batch, device=device,
+                groups=cfg.num_groups)
+
+
 def state_init(cfg: ModelConfig, *, device_batch: int, host_batch: int = 0,
                cache_len: int, device: torch.device,
                kv_dtype: torch.dtype = torch.bfloat16) -> StackState:
     """Zero decode state.  Attention caches hold the ``device_batch`` rows
     (host rows' KV lives in the host pool) and are bf16 whatever the
-    parameter dtype, as in the reference; Mamba states hold every row,
-    ``device_batch + host_batch``."""
-    check_supported(cfg)
+    parameter dtype, as in the reference; recurrent states hold every
+    row, ``device_batch + host_batch``."""
     shape = (cfg.num_groups, device_batch, cache_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     per_entry = tuple(
         AttnKV(k=torch.zeros(shape, dtype=kv_dtype, device=device),
                v=torch.zeros(shape, dtype=kv_dtype, device=device))
         if kind == BlockKind.ATTN else
-        ssm.mamba_init_state(cfg.mamba, cfg.d_model,
-                             device_batch + host_batch, device=device,
-                             groups=cfg.num_groups)
+        recurrent_state_init(cfg, kind, device_batch + host_batch, device)
         for kind in cfg.block_pattern)
     return StackState(per_entry=per_entry,
                       lengths=torch.zeros((device_batch,), dtype=torch.int32,
@@ -162,27 +171,43 @@ def layer_params(blocks: Tuple[Params, ...], j: int, g: int) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Prefill forward
+# Full-span forward (stateless, prefill, chunk)
 # ---------------------------------------------------------------------------
 
 
-def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Residual FFN over x (B, T, d); a ``router`` leaf marks an MoE
-    (its load-balance loss is a training term, dropped here)."""
+def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
+         aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Residual FFN over x (B, T, d); x itself where the entry has none.
+    A ``router`` leaf marks an MoE, whose load-balance loss is appended
+    to ``aux`` when given (a training term: serving drops it)."""
+    if "ffn" not in p:
+        return x
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "router" in p["ffn"]:
-        return x + moe.moe_ffn(p["ffn"], h2, cfg.moe)[0]
+        out, loss = moe.moe_ffn(p["ffn"], h2, cfg.moe)
+        if aux is not None:
+            aux.append(loss)
+        return x + out
     return x + mlp(p["ffn"], h2)
 
 
 def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-               lengths: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
-    """Prefill attention block.  x: (B, T, d); kc, vc: this layer's
-    (B, S, KV, D) cache, written in place at [lengths, lengths + T)."""
+               positions: torch.Tensor, kc: Optional[torch.Tensor],
+               vc: Optional[torch.Tensor], lengths: Optional[torch.Tensor],
+               inv_freq: torch.Tensor,
+               prefix_len: Optional[torch.Tensor] = None,
+               aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Attention block over x (B, T, d).  With a cache (kc, vc: this
+    layer's (B, S, KV, D)), the span is written in place at [lengths,
+    lengths + T) and attended over the cache; without one (the stateless
+    forward) over the span itself."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim, positions, inv_freq)
+    if kc is None:
+        attn = ops.prefill_attention(q, k, v, prefix_len,
+                                     causal=cfg.causal)
+        return _ffn(p, cfg, x + attention_output(p["attn"], attn), aux)
     b, t = x.shape[:2]
     rows = torch.arange(b, device=x.device)[:, None]
     # padding past the cache end lands on its last column, which no real
@@ -192,15 +217,20 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # in place: the reference's .at[rows, cols].set on a donated cache
     kc[rows, cols] = k.to(kc.dtype)
     vc[rows, cols] = v.to(vc.dtype)
+    if not cfg.causal:
+        # full attention over the written positions: the causal mask OR
+        # a prefix reaching the span's end is exactly k < lengths + T
+        prefix_len = (lengths + t).to(torch.int32)
     # causality on absolute positions (k <= lengths + i) also hides every
     # cache column past the span just written
-    attn = ops.prefill_attention(q, kc, vc, q_offset=lengths)
-    return _ffn(p, cfg, x + attention_output(p["attn"], attn))
+    attn = ops.prefill_attention(q, kc, vc, prefix_len, q_offset=lengths)
+    return _ffn(p, cfg, x + attention_output(p["attn"], attn), aux)
 
 
 def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  st: ssm.MambaState, g: int,
-                 valid_lens: Optional[torch.Tensor]) -> torch.Tensor:
+                 valid_lens: Optional[torch.Tensor],
+                 aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Mamba block over x (B, T, d); group g of the entry's state ``st``
     is updated in place (rows with valid_lens 0 keep theirs): the scan
     writes the SSM state straight back into its slice."""
@@ -213,33 +243,78 @@ def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, new = ssm.mamba_forward_chunk(p["mamba"], cfg.mamba, h, carried,
                                          valid_lens, h_out=st.ssm[g])
     st.conv[g].copy_(new.conv)
-    return _ffn(p, cfg, x + y)
+    return _ffn(p, cfg, x + y, aux)
+
+
+_XLSTM_FORWARD = {BlockKind.SLSTM: ssm.slstm_forward,
+                  BlockKind.MLSTM: ssm.mlstm_forward}
+
+
+def _xlstm_block(p: Params, cfg: ModelConfig, kind: BlockKind,
+                 x: torch.Tensor, st, g: int,
+                 valid_lens: Optional[torch.Tensor]) -> torch.Tensor:
+    """sLSTM or mLSTM block over x (B, T, d): pre-norm, the recurrence
+    from group g of the entry's state ``st``, the residual; the new state
+    is copied back into that group (rows with valid_lens 0 keep theirs
+    bit for bit).  No FFN."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    carried = type(st)(*(a[g] for a in st))
+    y, new = _XLSTM_FORWARD[kind](p[kind.value], h, carried, cfg.num_heads,
+                                  valid_lens)
+    for dst, src in zip(st, new):
+        dst[g].copy_(src)
+    return x + y
 
 
 def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
                   x: torch.Tensor, positions: torch.Tensor,
-                  state: StackState,
-                  valid_lens: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, StackState]:
-    """Run the stack over a (right-padded) token span, writing its K/V and
-    recurrent state into ``state`` in place; returns (x, state with
-    lengths + T).  ``valid_lens`` (B,) counts each row's real tokens:
-    Mamba blocks freeze their state past it; attention ignores it (the
-    absolute-position causal mask already hides padded positions).  A
-    chunk of a prefill advances the lengths by its real tokens instead
-    (``model.prefill_chunk``)."""
-    check_supported(cfg)
+                  state: Optional[StackState],
+                  valid_lens: Optional[torch.Tensor] = None,
+                  prefix_len: Optional[torch.Tensor] = None,
+                  aux: Optional[List[torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, Optional[StackState]]:
+    """Run the stack over a (right-padded) token span.
+
+    With a ``state``, the span's K/V and recurrent state are written into
+    it in place and (x, state with lengths + T) is returned;
+    ``valid_lens`` (B,) counts each row's real tokens: recurrent blocks
+    freeze their state past it, attention ignores it (the absolute-
+    position causal mask already hides padded positions).  A chunk of a
+    prefill advances the lengths by its real tokens instead
+    (``model.prefill_chunk``).  Without one (the stateless forward),
+    attention sees the span alone, recurrent blocks start from zero
+    state, and (x, None) is returned.  ``prefix_len`` (B,) makes keys
+    below it visible to every query (prefix-LM).  MoE load-balance losses
+    go into ``aux`` when given: as the reference's stateless scan does,
+    only the last pattern entry's of each group (on Jamba, one of its
+    four MoE entries; ROADMAP queue 3)."""
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                 x.device)
+    entries = state.per_entry if state is not None else tuple(
+        None if kind == BlockKind.ATTN else
+        recurrent_state_init(cfg, kind, x.shape[0], x.device)
+        for kind in cfg.block_pattern)
+    lengths = state.lengths if state is not None else None
     for g in range(cfg.num_groups):
         for j, kind in enumerate(cfg.block_pattern):
             p = layer_params(blocks, j, g)
-            entry = state.per_entry[j]
-            if kind == BlockKind.ATTN:
-                x = _attn_full(p, cfg, x, positions, entry.k[g], entry.v[g],
-                               state.lengths, inv_freq)
+            entry = entries[j]
+            entry_aux: Optional[List[torch.Tensor]] = \
+                None if aux is None else []
+            if kind == BlockKind.MAMBA:
+                x = _mamba_block(p, cfg, x, entry, g, valid_lens, entry_aux)
+            elif kind != BlockKind.ATTN:
+                x = _xlstm_block(p, cfg, kind, x, entry, g, valid_lens)
+            elif entry is None:
+                x = _attn_full(p, cfg, x, positions, None, None, None,
+                               inv_freq, prefix_len, entry_aux)
             else:
-                x = _mamba_block(p, cfg, x, entry, g, valid_lens)
+                x = _attn_full(p, cfg, x, positions, entry.k[g], entry.v[g],
+                               lengths, inv_freq, prefix_len, entry_aux)
+        if aux is not None:
+            aux.extend(entry_aux)
+    if state is None:
+        return x, None
     return x, StackState(per_entry=state.per_entry,
                          lengths=state.lengths + x.shape[1])
 
@@ -254,7 +329,9 @@ def _attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  rows: torch.Tensor, lengths: torch.Tensor,
                  layer_idx: int, host: Optional[HostIO], device_batch: int,
                  inv_freq: torch.Tensor):
-    """One attention block for one decode token.  x: (B, d).
+    """One attention block for one decode token.  x: (B, d).  A decode
+    token attends every cached position up to its own, so causal and
+    full attention are the same here, as in the reference.
 
     Returns (x_new (pre-commit), q, k, v) with q/k/v (B, 1, heads, D)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)[:, None]               # (B,1,d)
@@ -285,7 +362,6 @@ def decode_step(blocks: Tuple[Params, ...], cfg: ModelConfig,
     embedding, host rows carry ``host.x_carry``.  positions: (B,).
     Returns (x_final (B, d), new_state, qkv_out | None).
     """
-    check_supported(cfg)
     device_batch = state.lengths.shape[0]
     total = x.shape[0]
     period = cfg.pattern_period
@@ -294,7 +370,7 @@ def decode_step(blocks: Tuple[Params, ...], cfg: ModelConfig,
     rows = torch.arange(device_batch, device=x.device)
     lengths = state.lengths.long()
     qkv_out = None
-    # per-row commit lengths of the Mamba state (1 = commit, 0 = ride
+    # per-row commit lengths of the recurrent state (1 = commit, 0 = ride
     # along) inside and outside the host rows' window; None: all commit
     commit_in = commit_out = None
     if host is not None:
@@ -331,9 +407,13 @@ def decode_step(blocks: Tuple[Params, ...], cfg: ModelConfig,
             else:
                 # host rows outside their window keep their state: a
                 # commit length of 0 freezes it bit for bit
-                x_new = _mamba_block(p, cfg, x[:, None], entry, g,
-                                     commit_in if in_window
-                                     else commit_out)[:, 0]
+                lens = commit_in if in_window else commit_out
+                if kind == BlockKind.MAMBA:
+                    x_new = _mamba_block(p, cfg, x[:, None], entry, g, lens)
+                else:
+                    x_new = _xlstm_block(p, cfg, kind, x[:, None], entry, g,
+                                         lens)
+                x_new = x_new[:, 0]
             if host is None:
                 x = x_new
                 continue

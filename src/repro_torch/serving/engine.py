@@ -96,10 +96,23 @@ def resolve_device(device) -> torch.device:
     return d
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for an encoder: the serving engine decodes, and
+    an encoder (``causal=False``) has no decode.  (The reference's engine
+    runs one anyway, embedding token ids where the model takes frame
+    embeddings and decoding through full attention: ROADMAP queue 3.)"""
+    if cfg.is_encoder_only:
+        raise ValueError(
+            f"{cfg.name} is an encoder (causal=False): it has no KV cache "
+            "and no decode, so the serving engine does not run it; its "
+            "path is model.forward_train over frame embeddings")
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params: ModelParams,
                  ecfg: Optional[EngineConfig] = None,
                  scheduler: Optional[ApexScheduler] = None) -> None:
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.e = ecfg or EngineConfig()
@@ -109,8 +122,8 @@ class Engine:
             raise ValueError(f"params live on {emb.device}, the engine is "
                              f"configured for {self.device}")
         if not cfg.has_kv_cache:
-            self.e.enable_offload = False   # APEX inapplicable
-        # recurrent (Mamba) state also spans the host rows
+            self.e.enable_offload = False   # APEX inapplicable (xLSTM)
+        # recurrent state also spans the host rows
         self.state = init_decode_state(
             cfg, device_batch=self.e.device_slots,
             host_batch=self.e.host_slots if self.e.enable_offload else 0,

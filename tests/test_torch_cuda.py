@@ -292,3 +292,58 @@ def test_chunked_staging_kv_split_invariant_and_prefix_row_is_a_copy(gen):
     for e, (k, v) in zip(prefix.per_entry, kept):
         assert torch.equal(e.k[:, 0], k) and torch.equal(e.v[:, 0], v)
     assert prefix.lengths[0].item() == plen
+
+
+# head geometries of the reference registry's published configs: (H, KV,
+# D) of internlm2-20b (group 6), llama3-405b (group 16), stablelm-12b
+# (head_dim 160), paligemma-3b (MQA, head_dim 256) and hubert-xlarge
+# (MHA, head_dim 80; prefill only: an encoder has no decode)
+NEW_DECODE_GEOMETRIES = [(48, 8, 128), (128, 8, 128), (32, 8, 160),
+                         (8, 1, 256)]
+NEW_PREFILL_GEOMETRIES = NEW_DECODE_GEOMETRIES + [(16, 16, 80)]
+
+
+@pytest.mark.parametrize("h,kv,d", NEW_DECODE_GEOMETRIES)
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 1e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 1e-5)])
+def test_decode_new_geometries(gen, h, kv, d, q_dtype, kv_dtype, tol):
+    """Groups 6 and 16 and head_dims 160 and 256 against the plain
+    version: rows of one position, of a partial tile and of many
+    splits."""
+    b, s = 3, 700
+    q = _randn(gen, (b, h, d), q_dtype)
+    k = _randn(gen, (b, s, kv, d), kv_dtype)
+    v = _randn(gen, (b, s, kv, d), kv_dtype)
+    lengths = torch.tensor([1, 45, 700], dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, lengths)
+    torch.testing.assert_close(
+        out.float(), ref.decode_attention_ref(q, k, v, lengths).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("h,kv,d", NEW_PREFILL_GEOMETRIES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_prefill_new_geometries(gen, h, kv, d, dtype, tol):
+    """Groups 6 and 16, head_dims 80, 160 and 256, on the tensor-core (bf16)
+    and the FMA (fp32) kernel: T not a multiple of the query block or
+    the key tile, causal with a prefix past the first blocks, full
+    attention over the ragged S, and a chunk at an offset bitwise equal
+    to the whole prompt's rows."""
+    b, t = 2, 100
+    q = _randn(gen, (b, t, h, d), dtype)
+    k = _randn(gen, (b, t, kv, d), dtype)
+    v = _randn(gen, (b, t, kv, d), dtype)
+    prefix = torch.tensor([70, 5], dtype=torch.int32, device="cuda")
+    for causal in (True, False):
+        out = prefill_attention_cuda(q, k, v, prefix, causal=causal)
+        torch.testing.assert_close(
+            out.float(), ref.prefill_attention_ref(q, k, v, prefix,
+                                                   causal=causal).float(),
+            atol=tol, rtol=tol)
+    whole = prefill_attention_cuda(q, k, v)
+    off = torch.full((b,), 37, dtype=torch.int32, device="cuda")
+    tail = prefill_attention_cuda(q[:, 37:].contiguous(), k, v, None, off)
+    assert torch.equal(tail, whole[:, 37:])

@@ -447,28 +447,41 @@ def test_hybrid_engine_matches_reference_engine(hybrid_pair, tiers):
 
 @pytest.mark.parametrize("case", ["moe", "xlstm"])
 def test_unported_stacks_name_their_roadmap_item(case, monkeypatch):
-    """An xLSTM stack raises NotImplementedError naming its ROADMAP item.
-    Jamba as published (MoE FFN on every second entry) runs: reduced in
-    fp32 with the reference's weights, prefill and three decode steps
-    (each from the reference's own state) match its logits at 1e-4, and
-    the serve CLI accepts the architecture."""
+    """The two stacks this test once held unported both run now.  A stack
+    of sLSTM blocks (ROADMAP queue 1 item 7) initialises and prefills to
+    the reference's logits at 1e-4 in fp32 with its weights
+    (tests/test_torch_xlstm.py holds the blocks and the engine).  Jamba
+    as published (MoE FFN on every second entry) runs: reduced in fp32
+    with the reference's weights, prefill and three decode steps (each
+    from the reference's own state) match its logits at 1e-4, and the
+    serve CLI accepts the architecture."""
     from repro_torch.launch import serve
-    from repro_torch.models import check_supported, init_params
-    if case == "xlstm":
-        cfg = dataclasses.replace(get_config("llama3.1-8b").reduced(),
-                                  block_pattern=(BlockKind.SLSTM,))
-        item = "queue 1 item 7"
-        with pytest.raises(NotImplementedError, match=item):
-            check_supported(cfg)
-        with pytest.raises(NotImplementedError, match=item):
-            init_params(cfg.reduced(), device="cpu")
-        return
+    from repro_torch.models import init_params
     kw = dict(param_dtype="float32", compute_dtype="float32")
+    if case == "xlstm":
+        rcfg, cfg = (dataclasses.replace(
+            get(ARCH).reduced(d_model=64, vocab=64), **kw,
+            block_pattern=(BlockKind.SLSTM,), num_layers=2)
+            for get in (ref_get_config, get_config))
+        init_params(cfg, device="cpu")
+        rparams = ref_init(jax.random.PRNGKey(0), rcfg)
+        params = params_from_numpy(cfg, jax.tree.map(np.asarray, rparams),
+                                   "cpu")
+        prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 9))
+        rst = ref_state(rcfg, device_batch=2, cache_len=32)
+        rlog, _ = ref_prefill(rparams, rcfg,
+                              {"tokens": jnp.asarray(prompt, jnp.int32)}, rst)
+        st = init_decode_state(cfg, device_batch=2, cache_len=32,
+                               device="cpu")
+        log, _ = prefill(params, cfg, {"tokens": torch.from_numpy(prompt)},
+                         st)
+        np.testing.assert_allclose(_np(log), _np(rlog), rtol=1e-4,
+                                   atol=1e-4)
+        return
     rcfg = dataclasses.replace(ref_get_config(ARCH).reduced(d_model=64,
                                                             vocab=64), **kw)
     cfg = dataclasses.replace(get_config(ARCH).reduced(d_model=64, vocab=64),
                               **kw)
-    check_supported(get_config(ARCH))
     assert cfg.ffn_kind == FFNKind.MOE and cfg.moe.num_experts == 8
     rparams = ref_init(jax.random.PRNGKey(0), rcfg)
     params = params_from_numpy(cfg, jax.tree.map(np.asarray, rparams), "cpu")

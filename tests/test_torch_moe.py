@@ -37,9 +37,9 @@ from repro.serving import EngineConfig as RefEngineConfig
 from repro.serving import Request as RefRequest
 from repro_torch.configs import get_config
 from repro_torch.core.profiler import OfflineProfiler
-from repro_torch.models import (check_supported, decode_step,
-                                init_decode_state, init_params, moe,
-                                params_from_numpy, prefill, prefill_bucketed)
+from repro_torch.models import (decode_step, init_decode_state,
+                                init_params, moe, params_from_numpy, prefill,
+                                prefill_bucketed)
 from repro_torch.models.config import BlockKind
 from repro_torch.models.kv_cache import AttnKV, StackState
 from repro_torch.models.ssm import MambaState
@@ -199,7 +199,6 @@ def test_init_and_bridge_keep_the_reference_layout(arch):
     the reference does, and ``params_from_numpy`` carries the reference's
     expert leaves across bit for bit (the bridge is generic over dicts)."""
     rcfg, rparams, cfg, params = _model_pair(arch)
-    check_supported(cfg)
     ours = init_params(cfg, seed=0, device="cpu")
     flat = jax.tree_util.tree_flatten_with_path
     theirs = {jax.tree_util.keystr(k): v
