@@ -81,7 +81,22 @@ Phases (any failure exits non-zero):
      measured perf model), with ``--fault-plan host_error@2``, with
      ``--arch deepseek-moe-16b --perf-model analytic --host-kv-dtype
      int8``, with ``--arch xlstm-125m --perf-model analytic`` and with
-     ``--arch paligemma-3b``.
+     ``--arch paligemma-3b``;
+ 15. gateway: llama3.1-8b at published width (bf16, all 32 layers) served
+     by two ``InferenceServer`` replicas sharing one copy of the weights
+     behind the HTTP/SSE gateway (the reference's default path on 2 device
+     + 2 host slots each, one measured profile that every replica build
+     loads): a closed-loop burst of 8 requests (128 -> 16 tokens) from 4
+     client threads over real sockets, its streams equal to a direct
+     ``InferenceServer`` run up to two-ULP ties, /health and /metrics,
+     no host fallback; two 3-turn sessions pinned to their replica with
+     prefix hits; 503 at a full queue and 429 behind a backlog; a
+     ``driver_crash`` fault plan on one replica (its streams end with the
+     crash's error, the other's finish, exactly one respawn, /health green
+     again, the next request on the respawned replica); the burst on one
+     replica, and on one replica holding both replicas' device slots;
+     ``python -m repro_torch.launch.gateway --published --layers 4
+     --smoke-test``.
 
 Phase 2 also holds both attention kernels at the registry's published
 head geometries (group 6, group 16, head_dim 160 and 256; the VLM's
@@ -1550,29 +1565,34 @@ class _Watch:
     token completes, first tokens at graduation.  Also counts the chunk
     budgets Algorithm 1 granted (budget -> iterations).  With
     ``keep_rows`` it keeps each of those logit rows too (``logit_rows``),
-    for comparing two runs' logits token by token."""
+    for comparing two runs' logits token by token.  Engines on several
+    threads (the gateway's replicas) may share one watch."""
 
     def __init__(self, device: str, keep_rows: bool = False):
         import collections
+        import threading
         import torch
         self.nan = torch.zeros((), dtype=torch.bool, device=device)
         self.keys, self.tops, self.kept = [], [], []
         self.keep_rows = keep_rows
-        self.last = None
+        self.last = {}          # engine -> its last committed logits
         self.dtype = None
         self.budgets = collections.Counter()
+        self._lock = threading.Lock()
 
     def rows(self, logits, rows, keys):
         import torch
         if len(rows) == 0:
             return
-        self.dtype = logits.dtype
         sel = logits[torch.as_tensor(rows, device=logits.device)].float()
-        self.tops.append(torch.topk(sel, 2, dim=-1).values)
-        if self.keep_rows:
-            self.kept.append(sel)
-        self.keys += keys
-        self.nan.logical_or_(torch.isnan(sel).any())
+        top = torch.topk(sel, 2, dim=-1).values
+        with self._lock:
+            self.dtype = logits.dtype
+            self.tops.append(top)
+            if self.keep_rows:
+                self.kept.append(sel)
+            self.keys += keys
+            self.nan.logical_or_(torch.isnan(sel).any())
 
     def logit_rows(self) -> dict:
         """(request id, token index) -> that token's fp32 logit row."""
@@ -1602,11 +1622,12 @@ class _Watch:
         def schedule_watched(eng, admitted, rows):
             decision = schedule(eng, admitted, rows)
             if decision is not None and decision.chunk_tokens:
-                watch.budgets[decision.chunk_tokens] += 1
+                with watch._lock:
+                    watch.budgets[decision.chunk_tokens] += 1
             return decision
 
         def commit_watched(eng, logits, rows):
-            watch.last = logits
+            watch.last[id(eng)] = logits
             watch.rows(logits, rows, [
                 (eng.lc.slots[i].request_id, len(eng.lc.slots[i].output))
                 for i in rows])
@@ -1619,7 +1640,7 @@ class _Watch:
             if eng.stats.host_tokens > before:
                 reqs = [eng.lc.host_requests[cohort.slot_rids[i]]
                         for i in valid]
-                watch.rows(watch.last, [eng.e.device_slots + i
+                watch.rows(watch.last[id(eng)], [eng.e.device_slots + i
                                         for i in valid],
                            [(r.request_id, len(r.output) - 1)
                             for r in reqs])
@@ -2740,20 +2761,22 @@ def phase_faults() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _serve_cli(*extra: str) -> str:
+def _serve_cli(*extra: str, cli: str = "serve") -> str:
+    """Run ``python -m repro_torch.launch.<cli>`` with ``extra``; fail
+    unless it exits 0.  Returns its standard output."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+    proc = subprocess.run([sys.executable, "-m", f"repro_torch.launch.{cli}",
                            *extra], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
     for line in proc.stdout.strip().splitlines()[-7:]:
         log(f"  | {line}")
     if proc.returncode != 0:
         log(proc.stderr[-3000:])
-        fail(f"python -m repro_torch.launch.serve {' '.join(extra)} exited "
+        fail(f"python -m repro_torch.launch.{cli} {' '.join(extra)} exited "
              f"{proc.returncode}")
-    log(f"  launch.serve {' '.join(extra) or 'with its defaults'}: exit 0 "
+    log(f"  launch.{cli} {' '.join(extra) or 'with its defaults'}: exit 0 "
         f"in {time.perf_counter() - t0:.1f} s")
     return proc.stdout
 
@@ -3044,12 +3067,490 @@ def phase_encoder() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the HTTP/SSE gateway over engine replicas
+# ---------------------------------------------------------------------------
+
+# llama3.1-8b at published width behind the gateway: replicas share one
+# copy of the weights; each runs the reference's default serving path
+# (chunk 64, prefix cache, rebalancing, preemption) on 2 device + 2 host
+# slots over an fp32 host pool, Algorithm 1 on one measured profile
+GATEWAY = dict(replicas=2, device_slots=2, host_slots=2, cache_len=512,
+               page_size=32, clients=4, per_client=2, prompt_len=128,
+               output_len=16, conversations=2, turns=3, turn_tokens=32,
+               crash_at=6, crash_output=32, backlog=16)
+CRASH_REASON = ("replica 0 driver died: FaultInjectedError: replica driver "
+                "crash (injected)")
+
+
+def gateway_config(cfg, profile: Path, **kw):
+    from repro_torch.serving import ServerConfig
+    g = GATEWAY
+    pages_per_row = g["cache_len"] // g["page_size"]
+    base = dict(device_slots=g["device_slots"], host_slots=g["host_slots"],
+                cache_len=g["cache_len"], page_size=g["page_size"],
+                # each host slot a whole cache, and as much again for the
+                # prefix cache's chains
+                host_pool_pages=cfg.num_attn_layers * pages_per_row
+                * 2 * g["host_slots"],
+                device="cuda", perf_model="measured",
+                profile_cache=str(profile),
+                # two replicas in one process: half the cores each for
+                # their host-attention workers
+                host_workers=max(1, (os.cpu_count() or 2) // 2),
+                output_len=g["output_len"])
+    return ServerConfig(**{**base, **kw})
+
+
+def _gateway_pool(cfg, params, scfg, replicas: int, first_plan=None):
+    """``replicas`` InferenceServers over the one ``params``, behind an
+    EngineReplicaPool; the factory's first build carries the fault plan
+    ``first_plan`` (later builds, respawns included, carry none)."""
+    import dataclasses
+    from repro_torch.serving import InferenceServer
+    from repro_torch.serving.gateway import EngineReplicaPool
+    builds = []
+
+    def factory():
+        plan = first_plan if not builds else None
+        builds.append(plan)
+        return InferenceServer(cfg, params,
+                               dataclasses.replace(scfg, fault_plan=plan))
+
+    return EngineReplicaPool(factory, replicas=replicas)
+
+
+def _check_shared_weights(pool, params) -> str:
+    import torch
+    leaves = torch.utils._pytree.tree_leaves(params)
+    ptrs = sorted(t.data_ptr() for t in leaves)
+    for rep in pool.replicas:
+        mine = torch.utils._pytree.tree_leaves(rep.server.engine.params)
+        if sorted(t.data_ptr() for t in mine) != ptrs:
+            fail(f"gateway: replica {rep.index} does not share the weights' "
+                 "storage")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    return (f"{len(leaves)} weight tensors ({nbytes / 2**30:.2f} GiB) shared "
+            f"by all {len(pool.replicas)} replicas (same data_ptr)")
+
+
+def _burst(port: int, prompts, out_len: int, clients: int):
+    """A closed loop over real sockets: ``clients`` threads, each sending
+    its share of ``prompts`` one after another through ``POST /v1/chat``.
+    Returns (SSE results by prompt index, wall seconds)."""
+    import threading
+    from repro_torch.serving.gateway.client import sse_chat
+    results = {}
+    lock = threading.Lock()
+
+    def client(share):
+        for i in share:
+            r = sse_chat("127.0.0.1", port, prompts[i],
+                         max_new_tokens=out_len, timeout=600.0)
+            with lock:
+                results[i] = r
+
+    threads = [threading.Thread(target=client, args=(
+        range(c, len(prompts), clients),)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900.0)
+    if any(t.is_alive() for t in threads) or len(results) != len(prompts):
+        fail(f"gateway: {len(results)} of {len(prompts)} SSE streams "
+             "returned")
+    return results, time.perf_counter() - t0
+
+
+def _iterations(pool) -> dict:
+    """Replica -> (iterations, host-row tokens) so far."""
+    return {s["replica"]: (int(s["iterations"]), int(s["host_tokens"]))
+            for s in pool.stats()}
+
+
+def _burst_numbers(label: str, results: dict, wall: float, pool,
+                   before: dict) -> float:
+    """Print a burst's output tokens/s, TTFT and ITL from the SSE client's
+    clock, and each replica's iterations and host-row tokens since
+    ``before``."""
+    import numpy as np
+    ttft = [r["ttft_s"] for r in results.values() if r["ttft_s"] is not None]
+    itl = [x for r in results.values() for x in r["itl_s"]]
+    n = sum(len(r["tokens"]) for r in results.values())
+    now = _iterations(pool)
+    iters = {i: now[i][0] - before[i][0] for i in now}
+    host = {i: now[i][1] - before[i][1] for i in now}
+    log(f"  {label}: {len(results)} streams, {n} tokens in {wall:.3f} s: "
+        f"{n / wall:.2f} output tokens/s; TTFT p50 "
+        f"{1e3 * np.percentile(ttft, 50):.1f} ms, p95 "
+        f"{1e3 * np.percentile(ttft, 95):.1f} ms, ITL p50 "
+        f"{1e3 * np.percentile(itl, 50):.1f} ms (the SSE client's clock); "
+        f"iterations per replica {iters} ({sum(iters.values()) / wall:.2f} "
+        f"a second over all, {1e3 * wall / max(iters.values()):.1f} ms each "
+        f"on the busiest), host-row tokens {host} [{CARD}]")
+    return n / wall
+
+
+def _check_streams(label: str, results: dict, out_len: int) -> None:
+    bad = {i: (r["status"], r.get("error"), len(r["tokens"]))
+           for i, r in results.items()
+           if r["status"] != 200 or r["error"] or len(r["tokens"]) != out_len}
+    if bad:
+        fail(f"gateway {label}: streams without {out_len} tokens "
+             f"(status, error, tokens): {bad}")
+
+
+def _wait(predicate, what: str, timeout: float = 120.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not predicate():
+        if time.perf_counter() > deadline:
+            fail(f"gateway: {what} within {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def _gateway_sessions(port: int, pool, prompts) -> None:
+    """``conversations`` chats of ``turns`` turns, one thread each, with a
+    ``session_id``: each turn's prompt is the last one, its output and
+    ``turn_tokens`` new tokens.  Every follow-up must land on the
+    conversation's pinned replica, and that replica must record a prefix
+    hit for each."""
+    import threading
+    from repro_torch.serving.gateway.client import sse_chat
+    g = GATEWAY
+    first, news = prompts
+    before = {s["replica"]: s["prefix_hits"] for s in pool.stats()}
+    served = {c: [] for c in range(g["conversations"])}
+
+    def chat(c):
+        prompt = first[c]
+        for turn in range(g["turns"]):
+            r = sse_chat("127.0.0.1", port, prompt,
+                         max_new_tokens=g["output_len"],
+                         session_id=f"conversation-{c}", timeout=600.0)
+            served[c].append(r)
+            if r["status"] != 200 or r["error"]:
+                return
+            if turn + 1 < g["turns"]:
+                prompt = prompt + r["tokens"] + news[c][turn]
+
+    threads = [threading.Thread(target=chat, args=(c,)) for c in served]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900.0)
+    follow_ups = {}
+    for c, turns in served.items():
+        _check_streams(f"session {c}", dict(enumerate(turns)), g["output_len"])
+        if len(turns) != g["turns"]:
+            fail(f"gateway: conversation {c} ran {len(turns)} turns")
+        reps = [r["done"]["replica"] for r in turns]
+        if len(set(reps)) != 1:
+            fail(f"gateway: conversation {c} moved between replicas {reps}")
+        follow_ups[reps[0]] = follow_ups.get(reps[0], 0) + len(turns) - 1
+    after = {s["replica"]: s["prefix_hits"] for s in pool.stats()}
+    hits = {i: int(after[i] - before[i]) for i in follow_ups}
+    log(f"  sessions: {len(served)} conversations x {g['turns']} turns, "
+        f"pinned to replicas {sorted(follow_ups)}; follow-ups per replica "
+        f"{follow_ups}, prefix hits recorded {hits}")
+    short = {i: (hits[i], n) for i, n in follow_ups.items() if hits[i] < n}
+    if short:
+        fail(f"gateway: pinned replicas recorded fewer prefix hits than "
+             f"follow-ups (hits, follow-ups): {short}")
+
+
+def _gateway_backpressure(pool, prompts) -> None:
+    """503 from a gateway whose queue is full, and 429 for a deadline that
+    the queued backlog makes impossible (the same deadline is possible on
+    an idle pool)."""
+    from repro_torch.serving.gateway import serve_in_thread
+    from repro_torch.serving.gateway.client import sse_chat
+    g = GATEWAY
+    stops, held = [], []
+    try:
+        idle = pool.admission_estimate(g["prompt_len"])
+        held.append(pool.submit(prompts[0], g["output_len"]))
+        narrow, stop = serve_in_thread(pool, port=0, max_queue_depth=1)
+        stops.append(stop)
+        r = sse_chat("127.0.0.1", narrow.port, prompts[1],
+                     max_new_tokens=g["output_len"], timeout=120.0)
+        if r["status"] != 503 or "queue full" not in str(r["error"]):
+            fail(f"gateway: a full queue (depth 1) answered {r['status']}: "
+                 f"{r.get('body')}")
+        wide, stop = serve_in_thread(pool, port=0, max_queue_depth=64)
+        stops.append(stop)
+        held += [pool.submit(prompts[i % len(prompts)], g["output_len"])
+                 for i in range(g["backlog"] - 1)]
+        deadline = 1.5 * idle
+        r = sse_chat("127.0.0.1", wide.port, prompts[2],
+                     max_new_tokens=g["output_len"], deadline=deadline,
+                     timeout=120.0)
+        queued = sum(len(rep.server.engine.queue.snapshot())
+                     for rep in pool.live_replicas())
+        if r["status"] != 429 or "deadline" not in str(r["error"]):
+            fail(f"gateway: a {deadline:.4f} s deadline behind "
+                 f"{g['backlog']} requests answered {r['status']}: "
+                 f"{r.get('body')}")
+        log(f"  backpressure: 503 at queue depth 1; 429 for a "
+            f"{1e3 * deadline:.2f} ms deadline behind {g['backlog']} "
+            f"requests ({queued} still queued after the answer): predicted "
+            f"TTFT {1e3 * r['body']['predicted_ttft']:.2f} ms against "
+            f"{1e3 * idle:.2f} ms on the idle pool")
+    finally:
+        for h in held:
+            h.cancel()
+        for h in held:
+            list(h.events(timeout=120.0))
+        for stop in stops:
+            stop()
+    _wait(lambda: pool.depth() == 0, "the cancelled backlog did not drain")
+
+
+def _gateway_crash(cfg, params, scfg, prompts, profile: Path) -> None:
+    """A ``driver_crash`` fault plan on replica 0's first build: its
+    in-flight streams end with the crash's error event, replica 1's finish
+    cleanly, the pool respawns replica 0 once (generation 1, loading the
+    profile, not taking it), ``/health`` is green again, and the next
+    request finishes on the respawned replica."""
+    import torch
+    from repro_torch.serving.gateway import serve_in_thread
+    from repro_torch.serving.gateway.client import get_json, sse_chat
+    g = GATEWAY
+    stamp = profile.stat().st_mtime_ns
+    torch.cuda.reset_peak_memory_stats()
+    pool = _gateway_pool(cfg, params, scfg, 2,
+                         first_plan=f"driver_crash@{g['crash_at']}")
+    gateway, stop = serve_in_thread(pool, port=0)
+    try:
+        dead = pool.replicas[0]
+        results, _ = _burst(gateway.port, prompts, g["crash_output"],
+                            len(prompts))
+        _wait(lambda: pool.respawns >= 1 and pool.replicas[0].alive,
+              "replica 0 was not respawned")
+        errs = {i: r["error"] for i, r in results.items() if r["error"]}
+        on0 = [i for i, r in results.items() if r["done"]["replica"] == 0]
+        clean = {i: r for i, r in results.items()
+                 if r["done"]["replica"] == 1}
+        if not errs or set(errs) - set(on0) \
+                or set(errs.values()) != {CRASH_REASON}:
+            fail(f"gateway: the crash's streams ended with {errs} (replica "
+                 f"0 served {on0}); want {CRASH_REASON!r} on replica 0 only")
+        if not clean:
+            fail("gateway: replica 1 served none of the crash burst")
+        _check_streams("crash burst, replica 1", clean, g["crash_output"])
+        fired = dead.server.engine.faults.snapshot()["fired"]
+        health = get_json("127.0.0.1", gateway.port, "/health")
+        _wait(lambda: get_json("127.0.0.1", gateway.port, "/health")[
+            "body"]["status"] == "ok", "/health did not return to ok")
+        r = sse_chat("127.0.0.1", gateway.port, prompts[0],
+                     max_new_tokens=g["output_len"], timeout=600.0)
+        _check_streams("after the respawn", {0: r}, g["output_len"])
+        fresh, other = pool.replicas
+        log(f"  crash: driver_crash@{g['crash_at']} on replica 0 ended "
+            f"{len(errs)} of its {len(on0)} streams with {CRASH_REASON!r}; "
+            f"replica 1 finished {len(clean)} of {len(results)} cleanly; "
+            f"faults fired {fired}; respawns {pool.respawns}, generations "
+            f"{[rep.generation for rep in pool.replicas]}; /health "
+            f"{health['body']['status']} after the crash, ok again; the next "
+            f"request ran on replica {r['done']['replica']} (generation "
+            f"{fresh.generation}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
+            f"dead replica's state still held [{CARD}]")
+        if fired.get("driver_crash") != 1 or pool.respawns != 1:
+            fail(f"gateway: {fired} fired and {pool.respawns} respawns; want "
+                 "exactly one crash and one respawn")
+        if (fresh.generation, other.generation) != (1, 0) \
+                or r["done"]["replica"] != 0 or fresh.server.engine.faults \
+                or other.error is not None or dead.error != CRASH_REASON:
+            fail(f"gateway: after the respawn generations "
+                 f"{(fresh.generation, other.generation)}, the next request "
+                 f"on replica {r['done']['replica']}, errors "
+                 f"{(dead.error, other.error)}")
+        if profile.stat().st_mtime_ns != stamp:
+            fail("gateway: a replica build wrote the profile again instead "
+                 "of loading it")
+    finally:
+        stop()
+        pool.shutdown()
+
+
+def _one_replica_burst(cfg, params, scfg, prompts, warm, label: str
+                       ) -> float:
+    """The burst through a gateway over one replica (after a one-request
+    warm-up); returns its output tokens/s."""
+    from repro_torch.serving.gateway import serve_in_thread
+    g = GATEWAY
+    pool = _gateway_pool(cfg, params, scfg, 1)
+    gateway, stop = serve_in_thread(pool, port=0, max_queue_depth=64)
+    try:
+        _burst(gateway.port, [warm], 2, 1)
+        before = _iterations(pool)
+        results, wall = _burst(gateway.port, prompts, g["output_len"],
+                               g["clients"])
+        _check_streams(label, results, g["output_len"])
+        return _burst_numbers(label, results, wall, pool, before)
+    finally:
+        stop()
+        pool.shutdown()
+        _free_device()
+
+
+def phase_gateway() -> dict:
+    """llama3.1-8b at published width behind the HTTP/SSE gateway, two
+    replicas sharing its weights: a closed-loop burst over real sockets
+    (streams equal to a direct InferenceServer run up to two-ULP ties,
+    /health, /metrics, no host fallback), sticky sessions with prefix
+    hits, backpressure (503, 429), a driver crash and its respawn, the
+    burst on one replica (as configured, and with both replicas' device
+    slots), and the gateway CLI.  Returns the burst's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.perf_model import resolve_perf_model
+    from repro_torch.kernels import build
+    from repro_torch.serving import InferenceServer, Request
+    from repro_torch.serving.gateway import serve_in_thread
+    from repro_torch.serving.gateway.client import get_json, get_text
+    g = GATEWAY
+    t_phase = time.perf_counter()
+    build.load_all()            # no replica's first step pays for nvcc
+    cfg = get_config("llama3.1-8b")
+    params = _new_params(cfg)
+    profile = ROOT / "chiprun_out" / f"profile-gateway-{cfg.name}.json"
+    profile.parent.mkdir(exist_ok=True)
+    profile.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    resolve_perf_model("measured", cfg, profile_cache=str(profile),
+                       device="cuda")
+    log(f"  measured profile taken once in {time.perf_counter() - t0:.2f} s "
+        f"into {profile.relative_to(ROOT)}; every replica build loads it")
+    scfg = gateway_config(cfg, profile)
+    rng = np.random.default_rng(0)
+    v, plen, n_out = cfg.vocab_size, g["prompt_len"], g["output_len"]
+    prompts = [rng.integers(0, v, plen).tolist()
+               for _ in range(g["clients"] * g["per_client"])]
+    warm = [rng.integers(0, v, plen).tolist() for _ in range(g["replicas"])]
+    sessions = ([rng.integers(0, v, plen).tolist()
+                 for _ in range(g["conversations"])],
+                [[rng.integers(0, v, g["turn_tokens"]).tolist()
+                  for _ in range(g["turns"] - 1)]
+                 for _ in range(g["conversations"])])
+    wrappers = _kernel_wrappers()
+    with _Watch("cuda") as watch:
+        pool = _gateway_pool(cfg, params, scfg, g["replicas"])
+        gateway, stop = serve_in_thread(pool, port=0, max_queue_depth=64)
+        try:
+            log(f"  {g['replicas']} replicas x ({g['device_slots']} device + "
+                f"{g['host_slots']} host slots, cache_len {g['cache_len']}, "
+                f"host pool {scfg.host_pool_pages} fp32 pages, "
+                f"{scfg.host_workers} host workers each); "
+                + _check_shared_weights(pool, params) + "; "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+            # warm-up: one request per replica (cuBLAS handles, first
+            # launches); not part of the measured run
+            _burst(gateway.port, warm, 2, len(warm))
+            torch.cuda.synchronize()
+            before = _iterations(pool)
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrappers.values():
+                fn.launches = 0
+            results, wall = _burst(gateway.port, prompts, n_out,
+                                   g["clients"])
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            _check_streams("burst", results, n_out)
+            two = _burst_numbers(f"burst on {g['replicas']} replicas "
+                                 f"({g['clients']} clients x "
+                                 f"{g['per_client']} requests of {plen} -> "
+                                 f"{n_out} tokens)", results, wall, pool,
+                                 before)
+            log(f"  launches over the burst {launches}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"[{CARD}]")
+            need = cfg.num_attn_layers
+            if launches["decode_attention"] < need * (n_out - 1) \
+                    or launches["prefill_attention"] < need:
+                fail(f"gateway: the burst launched {launches}; the path "
+                     f"needs decode >= {need * (n_out - 1)}, prefill >= "
+                     f"{need}")
+            health = get_json("127.0.0.1", gateway.port, "/health")
+            metrics = get_text("127.0.0.1", gateway.port, "/metrics")
+            if health["status"] != 200 or health["body"]["status"] != "ok":
+                fail(f"gateway: /health after the burst: {health}")
+            if metrics["status"] != 200 or not all(
+                    f in metrics["body"] for f in (
+                        "apex_replica_up", "apex_engine_iterations_total")):
+                fail("gateway: /metrics lacks apex_replica_up or "
+                     "apex_engine_iterations_total")
+            fallbacks = sum(s["host_fallbacks"] for s in pool.stats())
+            if fallbacks:
+                fail(f"gateway: {fallbacks} host fallbacks on a healthy card")
+            direct = [Request(prompt=list(p), max_new_tokens=n_out)
+                      for p in prompts]
+            t0 = time.perf_counter()
+            with InferenceServer(cfg, params, scfg) as server:
+                for r in direct:
+                    server.submit(r)
+                server.run_until_idle()
+            t_direct = time.perf_counter() - t0
+            margins = watch.margins()
+            on = {i: r["tokens"] for i, r in results.items()}
+            off = {i: list(r.output) for i, r in enumerate(direct)}
+            on_m = {i: [margins.get((results[i]["done"]["request_id"], j))
+                        for j in range(len(on[i]))] for i in on}
+            off_m = {i: [margins.get((direct[i].request_id, j))
+                         for j in range(len(off[i]))] for i in off}
+            same, flips, other = compare_streams(on, off, on_m, off_m,
+                                                 watch.dtype)
+            log(f"  {same} of {len(on)} SSE streams identical to a direct "
+                f"InferenceServer run of the same prompts ({t_direct:.1f} s)"
+                + "".join(f"; parted at a tie: {f}" for f in flips))
+            if other or bool(watch.nan):
+                fail("gateway: SSE streams part from the direct run by more "
+                     "than two logit ULPs (or a logit was NaN): "
+                     + "; ".join(other))
+            t0 = time.perf_counter()
+            _gateway_sessions(gateway.port, pool, sessions)
+            _gateway_backpressure(pool, prompts)
+            log(f"  sessions and backpressure in "
+                f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            stop()
+            pool.shutdown()
+    del pool
+    _free_device()
+    t0 = time.perf_counter()
+    _gateway_crash(cfg, params, scfg, prompts[:g["clients"]], profile)
+    log(f"  crash step in {time.perf_counter() - t0:.1f} s")
+    _free_device()
+    # the burst on one replica as configured, then on one replica holding
+    # both replicas' device slots (the same device rows in one engine)
+    one = _one_replica_burst(cfg, params, scfg, prompts, warm[0],
+                             "the same burst on 1 replica")
+    wide = _one_replica_burst(
+        cfg, params, dataclasses.replace(
+            scfg, device_slots=g["replicas"] * g["device_slots"]),
+        prompts, warm[0], f"the same burst on 1 replica with "
+        f"{g['replicas'] * g['device_slots']} device slots")
+    log(f"  output tokens/s: {g['replicas']} replicas {two:.2f}, 1 replica "
+        f"{one:.2f} ({two / one:.2f}x), 1 replica with "
+        f"{g['replicas'] * g['device_slots']} device slots {wide:.2f} "
+        f"({two / wide:.2f}x) [{CARD}]")
+    del params
+    _free_device()
+    _serve_cli("--published", "--layers", "4", "--smoke-test",
+               cli="gateway")
+    log(f"  gateway phase in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "kernels", "profile", "exactness", "serving",
           "serving-hybrid", "faults", "serving-chunked", "serving-moe",
-          "serving-registry", "serving-xlstm", "vlm", "encoder", "cli")
+          "serving-registry", "serving-xlstm", "vlm", "encoder", "cli",
+          "gateway")
 
 
 def main() -> int:
@@ -3122,6 +3623,10 @@ def main() -> int:
     if "cli" in phases:
         log("== python -m repro_torch.launch.serve")
         phase_cli()
+    if "gateway" in phases:
+        log("== the HTTP/SSE gateway over two llama3.1-8b replicas at "
+            "published width")
+        launches["gateway"] = phase_gateway()
     if records and launches:
         for name, rec in records.items():
             by_path = {path: counts[name]

@@ -77,6 +77,16 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return logs
 
 
+def load_all(names: Iterable[str] = KERNELS) -> None:
+    """Build every named source (one ``nvcc`` each, all at once) and load
+    it, so that no caller's first launch pays the build: the gateway
+    does this before its replicas' driver threads start."""
+    names = tuple(names)
+    build(names)
+    for name in names:
+        load(name)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:

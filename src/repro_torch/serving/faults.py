@@ -26,9 +26,10 @@ Fault kinds and their injection sites:
 ``pool_alloc``            ``PagedKVPool.allocate`` raises :class:`MemoryError`
                           (pool exhausted); admission requeues, preemption
                           falls back to recompute-from-scratch.
-``driver_crash``          parsed and counted; its site, the gateway's
-                          replica driver, is not ported yet (ROADMAP
-                          queue 1 item 9), so no engine fires it.
+``driver_crash``          ``Replica._drive`` raises on its next pump
+                          (absorbs the older ``Replica.inject_fault`` test
+                          hook); the pool fails in-flight handles and
+                          respawns the replica.
 ``latency_spike``         ``Engine.step`` sleeps ``duration`` seconds at the
                           top of the iteration (GC pause / noisy neighbor).
 ========================  ====================================================
@@ -197,7 +198,9 @@ class FaultInjector:
             raise MemoryError("paged pool exhausted (injected)")
 
     def on_driver_pump(self) -> None:
-        """Hook for a replica driver's pump (not ported yet)."""
+        """Hook for ``Replica._drive`` (the gateway pool's driver loop),
+        called before every engine step it pumps: a ``driver_crash``
+        takes the pool's crash-containment and respawn path."""
         if self.fire("driver_crash") is not None:
             raise FaultInjectedError("replica driver crash (injected)")
 

@@ -32,6 +32,11 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/kernels/ops.py" in names
     assert "chip_smoke.py" in names
+    for module in ("serving/gateway/__init__", "serving/gateway/pool",
+                   "serving/gateway/metrics", "serving/gateway/http",
+                   "serving/gateway/client", "serving/simulator",
+                   "launch/gateway"):
+        assert f"src/repro_torch/{module}.py" in names
     assert len(names) > 20
 
 
