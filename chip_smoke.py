@@ -61,7 +61,7 @@ Phases (any failure exits non-zero):
      and held under the reference's 0.75 on llama3.1-8b cut to 8 layers
      run the same way (on this MoE geometry the reference's own int8 drift
      exceeds 0.75: tools/moe_drift_cpu.py);
- 10. serving-registry: stablelm-12b (head_dim 160, 40 layers),
+ 10. serving-registry: stablelm-12b (head_dim 160, cut to 16 layers),
      internlm2-20b (group 6, cut to 16 layers) and llama3-405b (group
      16, cut to 4 layers) at published width, 4 requests of 128 -> 16 tokens over 2
      device + 2 host slots, whole-prompt prefill, the analytic h100 perf
@@ -82,7 +82,7 @@ Phases (any failure exits non-zero):
      ``--arch deepseek-moe-16b --perf-model analytic --host-kv-dtype
      int8``, with ``--arch xlstm-125m --perf-model analytic`` and with
      ``--arch paligemma-3b``;
- 15. gateway: llama3.1-8b at published width (bf16, all 32 layers) served
+ 15. gateway: llama3.1-8b at published width (bf16, cut to 16 layers) served
      by two ``InferenceServer`` replicas sharing one copy of the weights
      behind the HTTP/SSE gateway (the reference's default path on 2 device
      + 2 host slots each, one measured profile that every replica build
@@ -96,13 +96,30 @@ Phases (any failure exits non-zero):
      again, the next request on the respawned replica); the burst on one
      replica, and on one replica holding both replicas' device slots;
      ``python -m repro_torch.launch.gateway --published --layers 4
-     --smoke-test``.
+     --smoke-test``;
+ 16. train: llama3.1-8b at published width and depth (bf16, Adafactor
+     lr 1e-4, remat, the loss over chunks of 256 tokens), 5 steps of B 2 x
+     T 1024 on one synthetic batch, and the dense-FFN Jamba period (8
+     layers) at published width, 3 steps of B 1 x T 1024: every loss and
+     grad norm finite, the last loss below the first, step time, tokens/s,
+     peak memory and launches (each attention and Mamba layer's forward
+     twice a step, its backward kernel once); one fp32 backward of both
+     models cut to 2 layers (Jamba: a Mamba and its attention layer) on
+     the card against the CPU's plain versions, leaf by leaf; 2 steps,
+     checkpoint, restore into a fresh state and a 3rd step bitwise the
+     uninterrupted one; ``python -m repro_torch.launch.train --steps 30
+     --ckpt-every 10`` and its ``--resume``.
 
 Phase 2 also holds both attention kernels at the registry's published
 head geometries (group 6, group 16, head_dim 160 and 256; the VLM's
 prefix-LM span; the encoder's full attention at head_dim 80 over T 500)
 and the fp32 prefill at head_dims 80, 160 and 256, and prints every
-kernel instantiation's registers and spills from ``-Xptxas -v``.
+kernel instantiation's registers and spills from ``-Xptxas -v``.  It
+holds the two backward kernels (training) against their plain versions:
+attention at llama3.1-8b's and Jamba's training shapes, the registry's
+other geometries and in fp32, timed beside SDPA's forward + backward;
+the scan at a reduced width and at Jamba's I 16384, T 256 and its
+training shape B 1 x T 1024.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (the
@@ -207,13 +224,14 @@ VLM = dict(rows=4, patches=256, text=32, decode_steps=8)
 ENCODER = dict(rows=4, frames=500, check_layers=2)
 # serving-registry: the dense configs at published width, 4 requests of
 # 128 -> 16 tokens over 2 device + 2 host slots, whole-prompt prefill,
-# the analytic h100 perf model; stablelm-12b at its published depth,
-# internlm2-20b cut to 16 of its 48 layers (at 48 its host rows decode a
-# token every 49 iterations: 87 s for the phase's traffic) and
-# llama3-405b to 4 of its 126 (one layer is 6.4 GB of bf16 weights)
+# the analytic h100 perf model; stablelm-12b cut to 16 of its 40 layers
+# (at 40 the phase took 81 s, and the train phase needed the time),
+# internlm2-20b to 16 of its 48 (at 48 its host rows decode a token
+# every 49 iterations: 87 s for the phase's traffic) and llama3-405b to
+# 4 of its 126 (one layer is 6.4 GB of bf16 weights)
 REGISTRY_SERVE = dict(requests=4, prompt_len=128, output_len=16,
                       device_slots=2, host_slots=2, cache_len=512)
-REGISTRY_LAYERS = {"stablelm-12b": 40, "internlm2-20b": 16,
+REGISTRY_LAYERS = {"stablelm-12b": 16, "internlm2-20b": 16,
                    "llama3-405b": 4}
 CARD = ""           # nvidia-smi's "name, power.limit", set by phase 1
 # a part of each hand-written kernel's name, as the profiler reports it
@@ -222,7 +240,13 @@ PORT_KERNELS = {"decode_attention": "decode_kernel",
                 "mamba_scan_kernel"}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header carries the seconds since start."""
+    if msg.startswith("== "):
+        msg += f"  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1177,6 +1201,247 @@ def _record(name, source, replaces, err, times, nbytes, flops, dt,
             "shape": shape}
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the backward kernels (training)
+# ---------------------------------------------------------------------------
+
+# attention backward cases, (label, B, T, H, KV, D, causal, prefix, dtype):
+# llama3.1-8b's and Jamba's training shapes, the registry's other head
+# geometries, and an fp32 (FMA) case
+ATTN_BWD_CASES = [
+    ("llama3.1-8b train", 2, 1024, 32, 8, 128, True, 0, "bfloat16"),
+    ("jamba train", 1, 1024, 64, 8, 128, True, 0, "bfloat16"),
+    ("internlm2-20b G6", 2, 256, 48, 8, 128, True, 0, "bfloat16"),
+    ("llama3-405b G16", 1, 256, 128, 8, 128, True, 0, "bfloat16"),
+    ("stablelm-12b D160", 2, 256, 32, 8, 160, True, 0, "bfloat16"),
+    ("paligemma-3b prefix", 2, 288, 8, 1, 256, True, 256, "bfloat16"),
+    ("hubert-xlarge full", 2, 500, 16, 16, 80, False, 0, "bfloat16"),
+    ("llama3.1-8b fp32", 1, 128, 32, 8, 128, True, 0, "float32"),
+]
+# bf16 gradients carry the probabilities and dS rounded to bf16 before the
+# products; fp32 ones differ from the plain version by sums in other
+# orders (each bar relative to the gradient's largest |element|)
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# scan backward cases, (label, B, T, I, N): a reduced width, Jamba's at
+# T 256, and Jamba's training shape (the train phase's B 1 x T 1024),
+# where the record is taken
+SCAN_BWD_CASES = [("reduced", 2, 256, 1024, 16), ("jamba", 2, 256, 16384, 16),
+                  ("jamba train", 1, 1024, 16384, 16)]
+# the scan's gradients sum 16384 channels (db, dc) and B*T steps (dA, dD)
+# in other orders than the plain loop
+SCAN_BWD_TOL = 1e-4
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (gradients sum over T and G)."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+
+
+def _attn_bwd_case(gen, b, t, h, kv, d, causal, prefix, dtype):
+    import torch
+    dt = getattr(torch, dtype)
+    q = _randn(gen, (b, t, h, d), dt, "cuda")
+    k = _randn(gen, (b, t, kv, d), dt, "cuda")
+    v = _randn(gen, (b, t, kv, d), dt, "cuda")
+    do = _randn(gen, (b, t, h, d), dt, "cuda")
+    pre = torch.full((b,), prefix, dtype=torch.int32, device="cuda")
+    return q, k, v, do, pre
+
+
+def check_attention_bwd(gen) -> dict:
+    """The attention backward kernel against the plain backward at every
+    case of ``ATTN_BWD_CASES`` (on the kernel forward's output and
+    log-sum-exp, itself held to the plain log-sum-exp), twice, bitwise
+    the same; returns (max |err|, max |err| / max |grad|) per case."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_bwd_cuda, prefill_attention_cuda)
+    errs = {}
+    for label, b, t, h, kv, d, causal, prefix, dtype in ATTN_BWD_CASES:
+        q, k, v, do, pre = _attn_bwd_case(gen, b, t, h, kv, d, causal,
+                                          prefix, dtype)
+        out, lse = prefill_attention_cuda(q, k, v, pre, causal=causal,
+                                          return_lse=True)
+        _, lse_ref = ref.prefill_attention_ref(q, k, v, pre, causal=causal,
+                                               return_lse=True)
+        lse_err = float((lse - lse_ref).abs().max())
+        got = prefill_attention_bwd_cuda(q, k, v, out, lse, do, pre,
+                                         causal=causal)
+        again = prefill_attention_bwd_cuda(q, k, v, out, lse, do, pre,
+                                           causal=causal)
+        want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, pre,
+                                             causal)
+        torch.cuda.synchronize()
+        err = max(_rel_err(g, w) for g, w in zip(got, want))
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
+        log(f"  prefill_attention_bwd {label} B{b} T{t} H{h} KV{kv} D{d} "
+            f"{'causal' if causal else 'full'}"
+            f"{f', prefix {prefix}' if prefix else ''} {dtype}: dq/dk/dv "
+            f"max |err| / max |grad| {err:.3e} (bar {BWD_TOL[dtype]}), lse "
+            f"max |err| {lse_err:.3e}, repeat bitwise {same}")
+        if err > BWD_TOL[dtype] or lse_err > 1e-3 or not same:
+            fail(f"prefill_attention_bwd at {label}: rel err {err}, lse "
+                 f"err {lse_err}, repeat bitwise {same}")
+        errs[label] = (abs_err, err)
+        del q, k, v, do, out, lse, got, again, want
+    return errs
+
+
+def _attn_bwd_bound(b, t, h, kv, d, pairs, el):
+    """Bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once;
+    operations: the five products over the visible (query, key) pairs
+    (S = QK^T again, dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K),
+    10 * D flops per pair and query head."""
+    nbytes = el * (4 * b * t * h * d + 4 * b * t * kv * d) + 4 * b * h * t
+    return nbytes, 10 * pairs * h * d
+
+
+def bench_attention_bwd(gen, errs) -> dict:
+    """The record: the attention backward at llama3.1-8b's training shape
+    (B 2, T 1024, 32/8 heads of 128, causal, bf16) -- kernel, plain
+    backward, and as the yardstick autograd through
+    ``scaled_dot_product_attention``'s forward and backward (timed only);
+    Jamba's shape (64/8) beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_bwd_cuda, prefill_attention_cuda)
+    rec = None
+    for label, b, t, h, kv, d, causal, prefix, dtype in ATTN_BWD_CASES[:2]:
+        q, k, v, do, pre = _attn_bwd_case(gen, b, t, h, kv, d, causal,
+                                          prefix, dtype)
+        out, lse = prefill_attention_cuda(q, k, v, pre, return_lse=True)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def library():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        def kernel():
+            return prefill_attention_bwd_cuda(q, k, v, out, lse, do, pre)
+
+        def plain():
+            return ref.prefill_attention_bwd_ref(q, k, v, out, lse, do, pre)
+
+        def fwd_bwd():
+            o, s = prefill_attention_cuda(q, k, v, pre, return_lse=True)
+            return prefill_attention_bwd_cuda(q, k, v, o, s, do, pre)
+
+        shape = f"{label} B{b} T{t} H{h} KV{kv} D{d} causal {dtype}"
+        if rec is None:
+            times = _times(kernel, plain, library)
+            pairs = b * t * (t + 1) // 2
+            nbytes, flops = _attn_bwd_bound(b, t, h, kv, d, pairs, 2)
+            rec = _record("prefill_attention_bwd",
+                          "src/repro_torch/csrc/prefill_attention_bwd.cu",
+                          "src/repro/kernels/prefill_attention.py:128",
+                          errs[label][0], times, nbytes, flops,
+                          "bfloat16", shape)
+            rec["library"] = ("torch.nn.functional.scaled_dot_product_"
+                              "attention forward + backward (autograd)")
+            rec["cases_rel_err"] = {k: v[1] for k, v in errs.items()}
+        fb = time_ms(fwd_bwd, reps=10)
+        lib = time_ms(library, reps=10)
+        bwd = time_ms(kernel, reps=10)
+        log(f"  {shape}: CUDA events per call: backward kernel {bwd:.4f} "
+            f"ms, forward + backward kernels {fb:.4f} ms, SDPA forward + "
+            f"backward {lib:.4f} ms [{CARD}]")
+        rec.setdefault("fwd_bwd", {})[label] = {
+            "ms_events": fb, "library_ms_events": lib, "bwd_ms_events": bwd}
+        del q, k, v, do, out, lse, qt, kt, vt
+    return rec
+
+
+def scan_bwd_bound(b: int, t: int, i: int, n: int) -> dict:
+    """Bytes: dt, x, dy, b, c, A, D, h0 read once, ddt, dx, db, dc, dA, dD,
+    dh0 written once (fp32); operations: the B*T*I*N exp(dt A) factors
+    on the SFUs and ~14 fp32 flops per state and step."""
+    nbytes = (3 * b * t * i * 4 + 2 * b * t * n * 4 + i * n * 4 + i * 4
+              + b * i * n * 4                          # inputs
+              + 2 * b * t * i * 4 + 2 * b * t * n * 4 + i * n * 4 + i * 4
+              + b * i * n * 4)                         # gradients
+    exps = b * t * i * n
+    flops = 14 * exps
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_exp = exps / PEAK_EXP_PER_S * 1e3
+    t_flop = flops / PEAK_FLOPS["float32"] * 1e3
+    bound = max(t_bytes, t_exp, t_flop)
+    return {"bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= max(t_exp, t_flop)
+            else "operations", "bytes": nbytes, "exp": exps,
+            "flops": flops, "t_bytes": t_bytes, "t_exp": t_exp,
+            "t_flop": t_flop}
+
+
+def bench_scan_bwd(gen) -> dict:
+    """The scan's backward kernel against the plain backward at
+    ``SCAN_BWD_CASES`` (with and without the final state's gradient;
+    twice, bitwise the same), and its record at the last case, Jamba's
+    training shape (I 16384, N 16, B 1 x T 1024); no PyTorch call
+    computes it (library: none)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_selective_scan_bwd_cuda
+    rec = None
+    for label, b, t, i, n in SCAN_BWD_CASES:
+        args = _scan_case(gen, b, t, i, n, torch.float32)
+        dy = _randn(gen, (b, t, i), torch.float32, "cuda")
+        dh = _randn(gen, (b, i, n), torch.float32, "cuda")
+        err = abs_err = 0.0
+        for dh_final in (dh, None):
+            got = mamba_selective_scan_bwd_cuda(*args, dy, dh_final)
+            again = mamba_selective_scan_bwd_cuda(*args, dy, dh_final)
+            want = ref.mamba_selective_scan_bwd_ref(*args, dy, dh_final)
+            torch.cuda.synchronize()
+            e = max(_rel_err(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(a, g) for a, g in zip(again, got))
+            if e > SCAN_BWD_TOL or not same:
+                fail(f"mamba_scan_bwd at {label}: rel err {e}, repeat "
+                     f"bitwise {same}")
+            err = max(err, e)
+            abs_err = max(abs_err, max(float((g - w).abs().max())
+                                       for g, w in zip(got, want)))
+        del got, again, want
+        kernel = lambda: mamba_selective_scan_bwd_cuda(*args, dy)
+        plain = lambda: ref.mamba_selective_scan_bwd_ref(*args, dy)
+        # CUDA events: a call is one long kernel and its reduction, longer
+        # than its enqueue; the profiler dropped records of it (0.576
+        # against 0.956 ms in one call on one H100)
+        kms = time_ms(kernel, reps=10)
+        dev = device_ms(kernel, reps=10) or float("nan")
+        plain_ms = time_ms(plain, warmup=1, reps=2, rounds=2)
+        bd = scan_bwd_bound(b, t, i, n)
+        log(f"  mamba_selective_scan_bwd {label} B{b} T{t} I{i} N{n} fp32: "
+            f"max |err| {abs_err:.3e}, max |err| / max |grad| {err:.3e} "
+            f"(bar {SCAN_BWD_TOL}), repeat bitwise; time per call (events): "
+            f"kernel {kms:.5f} ms (profiler {dev:.5f} ms), plain "
+            f"{plain_ms:.3f} ms; {_bound_text(bd)}, kernel at "
+            f"{100 * bd['bound_ms'] / kms:.2f}% of bound [{CARD}]")
+        rec = {"name": "mamba_selective_scan_bwd", "route": "cuda",
+               "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
+               "replaces": "src/repro/kernels/mamba_scan.py:87",
+               "launches": 0, "max_abs_err": abs_err, "rel_err": err,
+               "ms": kms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+               "bound_by": bd["bound_by"], "library_ms": None,
+               "shape": f"{label} B{b} T{t} I{i} N{n} fp32"}
+        del args, dy, dh
+    return rec
+
+
+def phase_kernels_bwd(gen) -> dict:
+    errs = check_attention_bwd(gen)
+    return {"prefill_attention_bwd": bench_attention_bwd(gen, errs),
+            "mamba_selective_scan_bwd": bench_scan_bwd(gen)}
+
+
 def phase_kernels() -> dict:
     import torch
     from repro_torch.kernels import build
@@ -1204,6 +1469,8 @@ def phase_kernels() -> dict:
     check_fma_new_dims(gen)
     for name, recs in bench_registry_shapes(gen).items():
         records[name]["registry_shapes"] = recs
+    # last again: the backward kernels (training)
+    records.update(phase_kernels_bwd(gen))
     return records
 
 
@@ -1386,11 +1653,15 @@ def _traced_window(cfg, params, scfg, prompts, output_len, iters):
 
 def _kernel_wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
-    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.kernels.mamba_scan import (mamba_selective_scan_bwd_cuda,
+                                                mamba_selective_scan_cuda)
+    from repro_torch.kernels.prefill_attention import (
+        prefill_attention_bwd_cuda, prefill_attention_cuda)
     return {"decode_attention": decode_attention_cuda,
             "prefill_attention": prefill_attention_cuda,
-            "mamba_selective_scan": mamba_selective_scan_cuda}
+            "mamba_selective_scan": mamba_selective_scan_cuda,
+            "prefill_attention_bwd": prefill_attention_bwd_cuda,
+            "mamba_selective_scan_bwd": mamba_selective_scan_bwd_cuda}
 
 
 def _serve_published(cfg, traced_iters: int, traffic: dict = MAIN) -> dict:
@@ -2440,7 +2711,9 @@ def phase_serving_moe() -> dict:
     top-6 + 2 shared, 16.9 B parameters, 33.8 GB in bf16), random weights
     from seed 0: both attention kernels held to their plain versions at
     its head geometry, then ``_serve_moe``; then ``_serve_moe`` on
-    llama3.1-8b cut to 8 layers, which holds the int8 drift envelope."""
+    llama3.1-8b cut to 8 layers, which holds the int8 drift envelope.
+    Its depth stays: cut to 14 layers, the int8 and fp32 streams parted
+    at a top-2 gap of 0.094, past the two-ULP tie bar (measured on one H100)."""
     import dataclasses
     import gc
     import torch
@@ -3077,7 +3350,7 @@ def phase_encoder() -> dict:
 GATEWAY = dict(replicas=2, device_slots=2, host_slots=2, cache_len=512,
                page_size=32, clients=4, per_client=2, prompt_len=128,
                output_len=16, conversations=2, turns=3, turn_tokens=32,
-               crash_at=6, crash_output=32, backlog=16)
+               crash_at=6, crash_output=32, backlog=16, layers=16)
 CRASH_REASON = ("replica 0 driver died: FaultInjectedError: replica driver "
                 "crash (injected)")
 
@@ -3395,13 +3668,14 @@ def _one_replica_burst(cfg, params, scfg, prompts, warm, label: str
 
 
 def phase_gateway() -> dict:
-    """llama3.1-8b at published width behind the HTTP/SSE gateway, two
-    replicas sharing its weights: a closed-loop burst over real sockets
-    (streams equal to a direct InferenceServer run up to two-ULP ties,
-    /health, /metrics, no host fallback), sticky sessions with prefix
-    hits, backpressure (503, 429), a driver crash and its respawn, the
-    burst on one replica (as configured, and with both replicas' device
-    slots), and the gateway CLI.  Returns the burst's launches."""
+    """llama3.1-8b at published width, cut to 16 layers, behind the
+    HTTP/SSE gateway, two replicas sharing its weights: a closed-loop
+    burst over real sockets (streams equal to a direct InferenceServer
+    run up to two-ULP ties, /health, /metrics, no host fallback), sticky
+    sessions with prefix hits, backpressure (503, 429), a driver crash
+    and its respawn, the burst on one replica (as configured, and with
+    both replicas' device slots), and the gateway CLI.  Returns the
+    burst's launches."""
     import dataclasses
     import numpy as np
     import torch
@@ -3414,7 +3688,11 @@ def phase_gateway() -> dict:
     g = GATEWAY
     t_phase = time.perf_counter()
     build.load_all()            # no replica's first step pays for nvcc
-    cfg = get_config("llama3.1-8b")
+    # 16 of llama's 32 layers: at 32 the phase took 148 s (the direct run
+    # and the one-replica burst 100 s of it), and training needed the time
+    cfg = dataclasses.replace(get_config("llama3.1-8b"),
+                              num_layers=g["layers"],
+                              name=f"llama3.1-8b-{g['layers']}L")
     params = _new_params(cfg)
     profile = ROOT / "chiprun_out" / f"profile-gateway-{cfg.name}.json"
     profile.parent.mkdir(exist_ok=True)
@@ -3544,13 +3822,321 @@ def phase_gateway() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+# llama3.1-8b at published width and depth: Adafactor, remat, the
+# chunked loss over 256 tokens, B 2 x T 1024 of the synthetic batch, 5
+# steps on one batch; the dense-FFN Jamba period (8 layers) at published
+# width, B 1 x T 1024, 3 steps.  lr 1e-4: at Adafactor's default 1e-3
+# (the reference's choice for giant archs) its RMS-clipped update moves
+# every weight by ~1e-3 a step, 6-9% of these widths' initial scale, and
+# from random weights the loss overshoots on the one batch, through the
+# plain versions as through the kernels (tools/train_lr_probe.py on one
+# H100 80GB HBM3, 700.00 W: llama kernels 12.12, 8.86, 7.73, 15.63,
+# 10.85, plain 12.12, 8.85, 7.65, 15.56, 10.45; Jamba kernels 11.53,
+# 8.75, 16.01, plain 11.53, 8.74, 16.57)
+TRAIN = dict(rows=2, seq=1024, steps=5, lr=1e-4, loss_chunk=256)
+TRAIN_HYBRID = dict(rows=1, seq=1024, steps=3)
+# one loss.backward() in fp32 on the card (kernels) against the CPU (plain
+# versions): both models at published width cut to 2 layers, B 1 x T 128;
+# each leaf's gradient within GRAD_TOL of its largest |element| (fp32
+# products of widths up to 24576 summed in other orders)
+GRAD_CHECK = dict(rows=1, seq=128, layers=2)
+GRAD_TOL = 1e-3
+# checkpoint and resume: llama3.1-8b at published width cut to 2 layers
+RESUME = dict(layers=2, rows=2, seq=256)
+
+
+def _train_setup(cfg, params, loss_chunk=TRAIN["loss_chunk"]):
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_optimizer, make_train_step)
+    tcfg = TrainConfig(optimizer="adafactor", remat=True,
+                       loss_chunk=loss_chunk)
+    opt = make_optimizer("adafactor", lr=TRAIN["lr"])
+    return (make_train_step(cfg, tcfg, opt),
+            init_train_state(cfg, tcfg, opt, params), tcfg, opt)
+
+
+def _batch(cfg, rows, seq, seed=0):
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import synthetic_batch
+    return synthetic_batch(np.random.default_rng(seed), cfg, rows, seq,
+                           torch.device("cuda"))
+
+
+def _train_run(cfg, rows: int, seq: int, steps: int) -> dict:
+    """``steps`` train steps of ``cfg`` (random weights from seed 0) on one
+    synthetic batch: every loss and grad norm finite, the last loss below
+    the first, each attention layer's forward launched twice a step
+    (remat) and its backward once, each Mamba layer's likewise."""
+    import math
+    import torch
+    from repro_torch.models.config import BlockKind
+    params = _new_params(cfg)
+    step, state, _, _ = _train_setup(cfg, params)
+    batch = _batch(cfg, rows, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    times, losses, norms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times[1:]) * 1e3
+    tokens = rows * seq
+    split = _step_split(cfg, state, batch)
+    log(f"  {steps} steps of B {rows} x T {seq}: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}")
+    log(f"  step time {ms:.1f} ms (median of steps 2-{steps}; first "
+        f"{times[0] * 1e3:.0f} ms), {tokens / ms * 1e3:.1f} tokens/s, peak "
+        f"device memory {peak:.2f} GiB; launches {counts} [{CARD}]")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{cfg.name}: a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: the loss did not fall ({losses})")
+    if peak > 70:
+        fail(f"{cfg.name}: peak {peak:.1f} GiB; the optimizer's per-group "
+             "update should hold it near 40")
+    n_attn = cfg.num_attn_layers
+    n_mamba = sum(k == BlockKind.MAMBA
+                  for k in cfg.block_pattern) * cfg.num_groups
+    need = {"prefill_attention": 2 * n_attn * steps,
+            "prefill_attention_bwd": n_attn * steps,
+            "mamba_selective_scan": 2 * n_mamba * steps,
+            "mamba_selective_scan_bwd": n_mamba * steps}
+    for name, n in need.items():
+        if counts[name] < n:
+            fail(f"{cfg.name}: {name} launched {counts[name]} times in "
+                 f"{steps} steps; the path needs {n}")
+    del params, state, batch
+    _free_device()
+    return {"counts": counts, "step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+            "peak_gib": peak, "losses": losses, "split": split}
+
+
+def _step_split(cfg, state, batch) -> dict:
+    """One more step in its parts, each timed to a synchronize: loss and
+    gradients, clipping, the optimizer; then a step under
+    ``torch.profiler``: device busy share and the kernels by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.optimizer import clip_by_global_norm
+    from repro_torch.training.train_step import loss_grads, make_loss_fn
+    step, _, tcfg, opt = _train_setup(cfg, state.params)
+    loss_fn = make_loss_fn(cfg, tcfg)
+    marks = [time.perf_counter()]
+    grads, _ = loss_grads(loss_fn, state.params, batch, None)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    grads, _ = clip_by_global_norm(grads, tcfg.grad_clip)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    opt.update(grads, state.opt_state, state.params)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    del grads
+    parts = {k: (marks[i + 1] - marks[i]) * 1e3 for i, k in
+             enumerate(("loss_and_grads_ms", "clip_ms", "optimizer_ms"))}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            per[ev.key] = per.get(ev.key, 0.0) + us / 1e3
+    busy = sum(per.values()) / (wall * 1e3)
+    log(f"  one step in parts: loss + gradients "
+        f"{parts['loss_and_grads_ms']:.1f} ms, clip {parts['clip_ms']:.1f} "
+        f"ms, Adafactor {parts['optimizer_ms']:.1f} ms; a profiled step "
+        f"{wall * 1e3:.1f} ms, device busy {100 * busy:.1f}%; top kernels "
+        f"by device time:")
+    for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:9.3f} ms  {key[:100]}")
+    return dict(parts, profiled_ms=wall * 1e3, busy=busy)
+
+
+def _cut(cfg, layers: int, **kw):
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=layers,
+                               name=f"{cfg.name}-{layers}L", **kw)
+
+
+def _grad_check(cfg) -> None:
+    """One loss.backward() of ``cfg`` in fp32 on the card, through the
+    kernels and their backward kernels, against the same weights and batch
+    on the CPU through the plain versions: the loss and every leaf."""
+    import torch
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.models import ModelParams, init_params
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.train_step import loss_grads, make_loss_fn
+    from repro_torch.models.config import BlockKind
+    kw = dict(param_dtype="float32", compute_dtype="float32")
+    if cfg.pattern_period > 1:   # the hybrid: a Mamba layer, then attention
+        kw["block_pattern"] = (BlockKind.MAMBA, BlockKind.ATTN)
+    f32 = _cut(cfg, GRAD_CHECK["layers"], **kw)
+    params = init_params(f32, seed=0, device="cuda")
+    cpu = ModelParams(*(tree_map(lambda a: a.cpu(), part)
+                        for part in params))
+    batch = _batch(f32, GRAD_CHECK["rows"], GRAD_CHECK["seq"])
+    loss_fn = make_loss_fn(f32, TrainConfig(remat=True))
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    card, m_card = loss_grads(loss_fn, params, batch, None)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    t1 = time.perf_counter()
+    plain, m_cpu = loss_grads(loss_fn, cpu, {k: v.cpu() for k, v in
+                                         batch.items()}, None)
+    t2 = time.perf_counter()
+    worst, where = 0.0, None
+    for i, (g, r) in enumerate(zip(tree_flatten(card)[0],
+                                   tree_flatten(plain)[0])):
+        ratio = float((g.cpu() - r).abs().max()) / max(
+            float(r.abs().max()), 1e-12)
+        if ratio > worst:
+            worst, where = ratio, (i, tuple(r.shape))
+    dl = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+    log(f"  {f32.name} fp32 {[k.value for k in f32.block_pattern]}, B "
+        f"{GRAD_CHECK['rows']} x T {GRAD_CHECK['seq']}: loss card "
+        f"{float(m_card['loss']):.6f}, CPU {float(m_cpu['loss']):.6f}; "
+        f"worst leaf |card - CPU| / max |grad| {worst:.3e} (leaf {where}; "
+        f"bar {GRAD_TOL}); card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s; "
+        f"launches {counts}")
+    if worst > GRAD_TOL or dl > 1e-4 * abs(float(m_cpu["loss"])):
+        fail(f"{f32.name}: the card's gradients part from the CPU's "
+             f"(worst {worst:.3e}, loss diff {dl:.3e})")
+    if counts["prefill_attention_bwd"] < 1 or (
+            f32.has_recurrent and counts["mamba_selective_scan_bwd"] < 1):
+        fail(f"{f32.name}: a backward kernel did not run: {counts}")
+    del params, cpu, card, plain
+    _free_device()
+
+
+def _resume_check() -> None:
+    """llama3.1-8b at published width cut to 2 layers: 2 steps, save,
+    restore into a fresh state (other weights), a 3rd step, against the
+    uninterrupted 3rd step: the restored state and the step after it
+    bitwise the same (the kernels use no atomics)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models import init_params
+    from repro_torch.training import checkpoint
+    cfg = _cut(get_config("llama3.1-8b"), RESUME["layers"])
+    step, state, _, _ = _train_setup(cfg, init_params(
+        cfg, seed=0, device="cuda"))
+    batches = [_batch(cfg, RESUME["rows"], RESUME["seq"], seed=s)
+               for s in range(3)]
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    d = tempfile.mkdtemp(prefix="apex_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save(d, 2, state)
+        _, fresh, _, _ = _train_setup(cfg, init_params(cfg, seed=1,
+                                                       device="cuda"))
+        at, fresh = checkpoint.restore(d, fresh)
+        t_io = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(d) for f in fs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same_restore = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+        tree_flatten(state)[0], tree_flatten(fresh)[0]))
+    state, m1 = step(state, batches[2])
+    fresh, m2 = step(fresh, batches[2])
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(
+        tree_flatten(state)[0], tree_flatten(fresh)[0])]
+    n_diff = sum(x > 0 for x in diffs)
+    log(f"  {cfg.name}: 2 steps, checkpoint of {nbytes / 2**30:.2f} GiB "
+        f"saved and restored in {t_io:.1f} s (step {at}), restored state "
+        f"bitwise {same_restore}; step 3 loss {float(m1['loss']):.6f} "
+        f"uninterrupted, {float(m2['loss']):.6f} resumed; leaves that "
+        f"differ after it: {n_diff} of {len(diffs)} (max |diff| "
+        f"{max(diffs):.3e})")
+    if at != 2 or not same_restore or n_diff or \
+            float(m1["loss"]) != float(m2["loss"]):
+        fail(f"{cfg.name}: the resumed step 3 is not the uninterrupted one")
+    del state, fresh, batches
+    _free_device()
+
+
+def _train_cli() -> None:
+    """``python -m repro_torch.launch.train --device cuda --steps 30
+    --ckpt-every 10``, then ``--resume`` to step 40."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="apex_train_cli_")
+    try:
+        out = _serve_cli("--device", "cuda", "--steps", "30",
+                         "--ckpt-every", "10", "--ckpt-dir", d, cli="train")
+        if "final checkpoint committed" not in out or \
+                sorted(os.listdir(d)) != ["LATEST", "step_000000010",
+                                          "step_000000020",
+                                          "step_000000030"]:
+            fail(f"launch.train: checkpoints {sorted(os.listdir(d))}")
+        out = _serve_cli("--device", "cuda", "--steps", "40",
+                         "--ckpt-every", "10", "--ckpt-dir", d, "--resume",
+                         cli="train")
+        if "resumed from step 30" not in out or \
+                "step_000000040" not in os.listdir(d):
+            fail("launch.train --resume did not continue from step 30")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_train() -> dict:
+    """Training on the card: llama3.1-8b at published width and depth, the
+    dense-FFN Jamba period at published width, gradients against the
+    CPU's, checkpoint and resume, the train CLI.  Returns the launches
+    of the llama and Jamba runs (summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    t_phase = time.perf_counter()
+    build.load_all()            # no first step pays for nvcc
+    _free_device()
+    llama = _train_run(get_config("llama3.1-8b"), TRAIN["rows"],
+                       TRAIN["seq"], TRAIN["steps"])
+    jamba = _train_run(hybrid_config(num_layers=8), TRAIN_HYBRID["rows"],
+                       TRAIN_HYBRID["seq"], TRAIN_HYBRID["steps"])
+    for cfg in (get_config("llama3.1-8b"), hybrid_config(num_layers=8)):
+        _grad_check(cfg)
+    _resume_check()
+    _train_cli()
+    log(f"  train phase in {time.perf_counter() - t_phase:.1f} s")
+    return {name: llama["counts"][name] + jamba["counts"][name]
+            for name in llama["counts"]}
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "kernels", "profile", "exactness", "serving",
           "serving-hybrid", "faults", "serving-chunked", "serving-moe",
           "serving-registry", "serving-xlstm", "vlm", "encoder", "cli",
-          "gateway")
+          "gateway", "train")
 
 
 def main() -> int:
@@ -3575,9 +4161,11 @@ def main() -> int:
     log("== environment")
     env = phase_env()
     records = {}
+    t_run = time.perf_counter()
     if "kernels" in phases:
         log("== kernels against their plain versions")
         records = phase_kernels()
+        log(f"  kernels phase in {time.perf_counter() - t_run:.1f} s")
     launches = {}       # path -> kernel -> launches over its measured run
     if "profile" in phases:
         log("== profile: OfflineProfiler on llama3.1-8b at published width")
@@ -3627,6 +4215,11 @@ def main() -> int:
         log("== the HTTP/SSE gateway over two llama3.1-8b replicas at "
             "published width")
         launches["gateway"] = phase_gateway()
+    if "train" in phases:
+        log("== training: llama3.1-8b and the dense-FFN Jamba period at "
+            "published width, gradients, checkpoint and resume, the CLI")
+        launches["train"] = phase_train()
+    log(f"== every phase in {time.perf_counter() - t_run:.1f} s")
     if records and launches:
         for name, rec in records.items():
             by_path = {path: counts[name]

@@ -65,6 +65,11 @@
 // exactly 1), so a token's output is bitwise the same however its
 // prompt was split into chunks.
 //
+// Both kernels write, when given a (B, H, T) fp32 buffer, each row's
+// natural-log log-sum-exp of its scaled scores (the backward in
+// prefill_attention_bwd.cu recomputes the probabilities from it); a null
+// pointer writes nothing else and leaves every output bit as it was.
+//
 // Plain C interface, loaded with ctypes.  Launches on the caller's
 // stream, never synchronises, allocates nothing, and returns
 // cudaGetLastError().
@@ -84,6 +89,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync, operands by ldmatrix
@@ -181,8 +187,9 @@ __global__ void __launch_bounds__(32 * GH, mma_min_blocks(D))
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ prefix_len,
                        const int* __restrict__ q_offset,
-                       __nv_bfloat16* __restrict__ out, int T_len, int S,
-                       int H, int KV, int causal, float scale_log2) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int T_len, int S, int H,
+                       int KV, int causal, float scale_log2) {
   using L = MmaSmem<D, GH>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -350,6 +357,10 @@ __global__ void __launch_bounds__(32 * GH, mma_min_blocks(D))
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    // natural-log LSE of the scaled scores, for the backward
+    if (lse != nullptr && lane % 4 == 0 && q0 + lr + 8 * r < T_len)
+      lse[((size_t)b * H + h0 + warp) * T_len + q0 + lr + 8 * r] =
+          (m_r[r] + log2f(l)) * kLn2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(stage + (lr + 8 * r) * L::LD +
@@ -372,8 +383,8 @@ __global__ void __launch_bounds__(32 * GH, mma_min_blocks(D))
 
 template <int D, int GH>
 int launch_mma(const void* q, const void* k, const void* v,
-               const int* prefix_len, const int* q_offset, void* out, int B,
-               int T_len, int S, int H, int KV, int causal,
+               const int* prefix_len, const int* q_offset, void* out,
+               float* lse, int B, int T_len, int S, int H, int KV, int causal,
                cudaStream_t stream) {
   using L = MmaSmem<D, GH>;
   auto kern = prefill_mma_kernel<D, GH>;
@@ -389,30 +400,30 @@ int launch_mma(const void* q, const void* k, const void* v,
   APEX_LAUNCH(kern, grid, dim3(L::kThreads), L::bytes, stream,
               (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
               (const __nv_bfloat16*)v, prefix_len, q_offset,
-              (__nv_bfloat16*)out, T_len, S, H, KV, causal, scale_log2);
+              (__nv_bfloat16*)out, lse, T_len, S, H, KV, causal, scale_log2);
   return 0;
 }
 
 template <int D>
 int dispatch_mma(const void* q, const void* k, const void* v,
-                 const int* prefix_len, const int* q_offset, void* out, int B,
-                 int T_len, int S, int H, int KV, int causal,
-                 cudaStream_t stream) {
+                 const int* prefix_len, const int* q_offset, void* out,
+                 float* lse, int B, int T_len, int S, int H, int KV,
+                 int causal, cudaStream_t stream) {
   switch (H / KV) {  // heads per CTA: G up to 4, 3 at G 6, else 4
     case 1:
-      return launch_mma<D, 1>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
-                              H, KV, causal, stream);
+      return launch_mma<D, 1>(q, k, v, prefix_len, q_offset, out, lse, B,
+                              T_len, S, H, KV, causal, stream);
     case 2:
-      return launch_mma<D, 2>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
-                              H, KV, causal, stream);
+      return launch_mma<D, 2>(q, k, v, prefix_len, q_offset, out, lse, B,
+                              T_len, S, H, KV, causal, stream);
     case 6:
-      return launch_mma<D, 3>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
-                              H, KV, causal, stream);
+      return launch_mma<D, 3>(q, k, v, prefix_len, q_offset, out, lse, B,
+                              T_len, S, H, KV, causal, stream);
     case 4:
     case 8:
     case 16:
-      return launch_mma<D, 4>(q, k, v, prefix_len, q_offset, out, B, T_len, S,
-                              H, KV, causal, stream);
+      return launch_mma<D, 4>(q, k, v, prefix_len, q_offset, out, lse, B,
+                              T_len, S, H, KV, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -456,8 +467,9 @@ __global__ void __launch_bounds__(NT)
                        const TKV* __restrict__ v,
                        const int* __restrict__ prefix_len,
                        const int* __restrict__ q_offset,
-                       float* __restrict__ out, int T_len, int S, int H,
-                       int KV, int causal, float scale) {
+                       float* __restrict__ out, float* __restrict__ lse,
+                       int T_len, int S, int H, int KV, int causal,
+                       float scale) {
   using L = FmaSmem<TKV, D>;
   constexpr int BQ = L::BQ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -584,12 +596,16 @@ __global__ void __launch_bounds__(NT)
       out[(((size_t)b * T_len + t) * H + h) * D + d] =
           acc[j] / fmaxf(row_l[r], 1e-30f);
   }
+  // natural-log LSE of the scaled scores, for the backward
+  if (lse != nullptr && tid < BQ && q0 + tid < T_len)
+    lse[((size_t)b * H + h) * T_len + q0 + tid] =
+        row_m[tid] + logf(row_l[tid]);
 }
 
 template <typename TKV, int D>
 int launch_fma(const void* q, const void* k, const void* v,
-               const int* prefix_len, const int* q_offset, void* out, int B,
-               int T_len, int S, int H, int KV, int causal,
+               const int* prefix_len, const int* q_offset, void* out,
+               float* lse, int B, int T_len, int S, int H, int KV, int causal,
                cudaStream_t stream) {
   using L = FmaSmem<TKV, D>;
   auto kern = prefill_fma_kernel<TKV, D>;
@@ -604,34 +620,34 @@ int launch_fma(const void* q, const void* k, const void* v,
   const float scale = 1.0f / sqrtf((float)D);
   APEX_LAUNCH(kern, grid, dim3(NT), L::bytes, stream, (const float*)q,
               (const TKV*)k, (const TKV*)v, prefix_len, q_offset,
-              (float*)out, T_len, S, H, KV, causal, scale);
+              (float*)out, lse, T_len, S, H, KV, causal, scale);
   return 0;
 }
 
 template <typename TKV>
 int dispatch_fma(const void* q, const void* k, const void* v,
-                 const int* prefix_len, const int* q_offset, void* out, int B,
-                 int T_len, int S, int H, int KV, int D, int causal,
-                 cudaStream_t stream) {
+                 const int* prefix_len, const int* q_offset, void* out,
+                 float* lse, int B, int T_len, int S, int H, int KV, int D,
+                 int causal, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_fma<TKV, 32>(q, k, v, prefix_len, q_offset, out, B, T_len,
-                                 S, H, KV, causal, stream);
+      return launch_fma<TKV, 32>(q, k, v, prefix_len, q_offset, out, lse,
+                                 B, T_len, S, H, KV, causal, stream);
     case 64:
-      return launch_fma<TKV, 64>(q, k, v, prefix_len, q_offset, out, B, T_len,
-                                 S, H, KV, causal, stream);
+      return launch_fma<TKV, 64>(q, k, v, prefix_len, q_offset, out, lse,
+                                 B, T_len, S, H, KV, causal, stream);
     case 80:
-      return launch_fma<TKV, 80>(q, k, v, prefix_len, q_offset, out, B, T_len,
-                                 S, H, KV, causal, stream);
+      return launch_fma<TKV, 80>(q, k, v, prefix_len, q_offset, out, lse,
+                                 B, T_len, S, H, KV, causal, stream);
     case 128:
-      return launch_fma<TKV, 128>(q, k, v, prefix_len, q_offset, out, B,
-                                  T_len, S, H, KV, causal, stream);
+      return launch_fma<TKV, 128>(q, k, v, prefix_len, q_offset, out, lse,
+                                 B, T_len, S, H, KV, causal, stream);
     case 160:
-      return launch_fma<TKV, 160>(q, k, v, prefix_len, q_offset, out, B,
-                                  T_len, S, H, KV, causal, stream);
+      return launch_fma<TKV, 160>(q, k, v, prefix_len, q_offset, out, lse,
+                                 B, T_len, S, H, KV, causal, stream);
     case 256:
-      return launch_fma<TKV, 256>(q, k, v, prefix_len, q_offset, out, B,
-                                  T_len, S, H, KV, causal, stream);
+      return launch_fma<TKV, 256>(q, k, v, prefix_len, q_offset, out, lse,
+                                 B, T_len, S, H, KV, causal, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -641,49 +657,50 @@ int dispatch_fma(const void* q, const void* k, const void* v,
 
 extern "C" int apex_prefill_attention(const void* q, const void* k,
                                       const void* v, const void* prefix_len,
-                                      const void* q_offset, void* out, int B,
-                                      int T_len, int S, int H, int KV, int D,
-                                      int q_bf16, int kv_bf16, int causal,
-                                      void* stream) {
+                                      const void* q_offset, void* out,
+                                      void* lse, int B, int T_len, int S,
+                                      int H, int KV, int D, int q_bf16,
+                                      int kv_bf16, int causal, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int* pre = (const int*)prefix_len;
   const int* qoff = (const int*)q_offset;
+  float* lse_f = (float*)lse;
   int rc = (int)cudaErrorInvalidValue;
   if (q_bf16 && kv_bf16) {
     switch (D) {
       case 32:
-        rc = dispatch_mma<32>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
-                              causal, st);
+        rc = dispatch_mma<32>(q, k, v, pre, qoff, out, lse_f, B, T_len, S,
+                              H, KV, causal, st);
         break;
       case 64:
-        rc = dispatch_mma<64>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
-                              causal, st);
+        rc = dispatch_mma<64>(q, k, v, pre, qoff, out, lse_f, B, T_len, S,
+                              H, KV, causal, st);
         break;
       case 80:
-        rc = dispatch_mma<80>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
-                              causal, st);
+        rc = dispatch_mma<80>(q, k, v, pre, qoff, out, lse_f, B, T_len, S,
+                              H, KV, causal, st);
         break;
       case 128:
-        rc = dispatch_mma<128>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
-                               causal, st);
+        rc = dispatch_mma<128>(q, k, v, pre, qoff, out, lse_f, B, T_len, S,
+                              H, KV, causal, st);
         break;
       case 160:
-        rc = dispatch_mma<160>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
-                               causal, st);
+        rc = dispatch_mma<160>(q, k, v, pre, qoff, out, lse_f, B, T_len, S,
+                              H, KV, causal, st);
         break;
       case 256:
-        rc = dispatch_mma<256>(q, k, v, pre, qoff, out, B, T_len, S, H, KV,
-                               causal, st);
+        rc = dispatch_mma<256>(q, k, v, pre, qoff, out, lse_f, B, T_len, S,
+                              H, KV, causal, st);
         break;
       default:
         break;
     }
   } else if (!q_bf16 && !kv_bf16) {
-    rc = dispatch_fma<float>(q, k, v, pre, qoff, out, B, T_len, S, H, KV, D,
-                             causal, st);
+    rc = dispatch_fma<float>(q, k, v, pre, qoff, out, lse_f, B, T_len, S, H,
+                             KV, D, causal, st);
   } else if (!q_bf16 && kv_bf16) {  // fp32 model over the bf16 KV cache
-    rc = dispatch_fma<__nv_bfloat16>(q, k, v, pre, qoff, out, B, T_len, S, H,
-                                     KV, D, causal, st);
+    rc = dispatch_fma<__nv_bfloat16>(q, k, v, pre, qoff, out, lse_f, B, T_len,
+                                     S, H, KV, D, causal, st);
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("decode_attention", "prefill_attention", "mamba_scan")
+KERNELS = ("decode_attention", "prefill_attention", "mamba_scan",
+           "prefill_attention_bwd", "mamba_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

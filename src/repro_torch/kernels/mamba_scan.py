@@ -19,6 +19,13 @@ kernel masks a ragged inner dimension itself.
 ``h_out`` takes the final state in place of a fresh tensor and may be
 ``h0`` itself: the model writes each layer's state back into its slice
 of the stacked state this way, with no copy.
+
+Training: ``MambaScanFn`` is the autograd Function of the stateless
+forward (every token real, no ``h_out``).  Its forward is this kernel;
+its backward is ``csrc/mamba_scan_bwd.cu`` (a reverse scan from states
+checkpointed every 8 steps, db/dc/dA/dD reduced in a second pass, no
+atomics) on the card and ``ref.mamba_selective_scan_bwd_ref`` on the
+CPU.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 
 STATE_DIMS = (8, 16)                 # N: reduced configs and Jamba
 IN_DTYPES = (torch.float32, torch.bfloat16)
@@ -142,3 +150,105 @@ def mamba_selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor,
 
 
 mamba_selective_scan_cuda.launches = 0
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("mamba_scan_bwd")
+    fn = lib.apex_mamba_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 20 + [_I] * 4 + [_P]
+        fn.restype = _I
+        lib.apex_mamba_scan_bwd_channels.argtypes = [_I]
+        lib.apex_mamba_scan_bwd_channels.restype = _I
+        lib.apex_mamba_scan_bwd_chunk.argtypes = []
+        lib.apex_mamba_scan_bwd_chunk.restype = _I
+    return lib
+
+
+def mamba_selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
+                                  b: torch.Tensor, c: torch.Tensor,
+                                  a_neg: torch.Tensor, d_skip: torch.Tensor,
+                                  h0: torch.Tensor, dy: torch.Tensor,
+                                  dh_final: Optional[torch.Tensor] = None):
+    """Gradients of ``mamba_selective_scan_cuda`` over every step (no
+    lens), fp32 inputs only: dy (B,T,I) and the final state's gradient
+    (B,I,N) or None -> (ddt, dx, db, dc, da_neg, dd_skip, dh0), fp32.
+    Scratch: h every 8 steps (B, T/8, I, N) and the per-block partial
+    sums.  One call launches the reverse scan and its reduction on the
+    current stream, no sync."""
+    _check(dt, x, b, c, a_neg, d_skip, h0, None, None)
+    if dt.dtype != torch.float32:
+        raise ValueError(f"the scan's backward takes fp32 inputs; got "
+                         f"{dt.dtype}")
+    bsz, t, inner = dt.shape
+    n = b.shape[-1]
+    grads = [("dy", dy, dt.shape)]
+    if dh_final is not None:
+        grads.append(("dh_final", dh_final, h0.shape))
+    for name, g, shape in grads:
+        if g.shape != shape or g.dtype != torch.float32 \
+                or g.device != dt.device or not g.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{tuple(shape)} tensor on {dt.device}")
+        if name == "dh_final" and g.data_ptr() % 16:
+            raise ValueError("dh_final must start on a 16-byte boundary")
+    lib = _bwd_lib()
+    chunk = lib.apex_mamba_scan_bwd_chunk()
+    nblk = -(-inner // lib.apex_mamba_scan_bwd_channels(n))
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    ckpt = torch.empty((bsz, -(-t // chunk), inner, n), **f32)
+    part_bc = torch.empty((bsz, nblk, t, 2 * n), **f32)
+    part_a = torch.empty((bsz, inner, n), **f32)
+    part_d = torch.empty((bsz, inner), **f32)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da, dd = torch.empty_like(a_neg), torch.empty_like(d_skip)
+    dh0 = torch.empty_like(h0)
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    rc = lib.apex_mamba_scan_bwd(
+        dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
+        a_neg.data_ptr(), d_skip.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+        dh_final.data_ptr() if dh_final is not None else None,
+        ckpt.data_ptr(), part_bc.data_ptr(), part_a.data_ptr(),
+        part_d.data_ptr(), ddt.data_ptr(), dx.data_ptr(), db.data_ptr(),
+        dc.data_ptr(), da.data_ptr(), dd.data_ptr(), dh0.data_ptr(),
+        bsz, t, inner, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: "
+                           f"cudaError {rc}")
+    mamba_selective_scan_bwd_cuda.launches += 1
+    return ddt, dx, db, dc, da, dd, dh0
+
+
+mamba_selective_scan_bwd_cuda.launches = 0
+
+
+class MambaScanFn(torch.autograd.Function):
+    """Differentiable selective scan over every step from h0 (no lens, no
+    ``h_out``): the kernel and its backward kernel on the card, the plain
+    versions on the CPU (by the tensors' device).  Returns (y, h_final);
+    saves the inputs, since the backward recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, dt, x, b, c, a_neg, d_skip, h0):
+        ctx.set_materialize_grads(False)
+        if dt.device.type == "cpu":
+            y, h = ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip,
+                                                h0)
+        else:
+            y, h = mamba_selective_scan_cuda(dt, x, b, c, a_neg, d_skip, h0)
+        ctx.save_for_backward(dt, x, b, c, a_neg, d_skip, h0)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        args = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(args[0].shape, dtype=torch.float32,
+                             device=args[0].device)
+        dy = dy.contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        if args[0].device.type == "cpu":
+            return ref.mamba_selective_scan_bwd_ref(*args, dy, dh_final)
+        return mamba_selective_scan_bwd_cuda(*args, dy, dh_final)

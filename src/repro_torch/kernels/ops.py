@@ -3,6 +3,12 @@
 A tensor on the CPU takes the plain PyTorch version in ``ref``; any
 other device goes to the hand-written CUDA kernel, whose wrapper raises
 on what it cannot take.  There is no fallback between the two.
+
+A call that needs a gradient (grad mode on and an input that requires
+one) goes through the kernel's ``torch.autograd.Function``, whose
+backward is the backward kernel on the card and the plain backward on
+the CPU.  Training passes neither ``q_offset`` nor ``lens`` nor
+``h_out``; such a call is refused.
 """
 from __future__ import annotations
 
@@ -14,6 +20,10 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import mamba_scan as _scan
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import ref as _ref
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,6 +40,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True) -> torch.Tensor:
     """(B,T,H,D) x (B,S,KV,D) causal attention at absolute positions
     ``q_offset[b] + i`` (chunked prefill), optional prefix-LM mask."""
+    if _needs_grad(q, k, v):
+        if q_offset is not None:
+            raise ValueError("prefill_attention has no gradient through "
+                             "q_offset (no training path takes one)")
+        return _pre.PrefillAttentionFn.apply(q, k, v, prefix_len, causal)
     if q.device.type == "cpu":
         return _ref.prefill_attention_ref(q, k, v, prefix_len, q_offset,
                                           causal=causal)
@@ -46,6 +61,11 @@ def mamba_selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     (I,); h0 (B,I,N); state frozen past ``lens[b]`` -> (y, h_final) fp32.
     With ``h_out`` (contiguous fp32 (B,I,N), may be h0) the final state
     is written there and returned."""
+    if _needs_grad(dt, x, b, c, a_neg, d_skip, h0):
+        if lens is not None or h_out is not None:
+            raise ValueError("mamba_selective_scan has no gradient with "
+                             "lens or h_out (no training path takes them)")
+        return _scan.MambaScanFn.apply(dt, x, b, c, a_neg, d_skip, h0)
     if dt.device.type == "cpu":
         _scan.check_h_out(h0, h_out)
         y, h = _ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip, h0,

@@ -9,6 +9,13 @@ both products on tensor cores (mma.sync, fp32 accumulate, scores and
 probabilities in registers); an fp32 query uses plain FMA.  Tile
 boundaries do not depend on ``q_offset`` or T, so a token's output is
 bitwise the same however its prompt is split into chunks.
+
+Training: ``PrefillAttentionFn`` is the autograd Function of the
+stateless forward.  Its forward is this kernel, which then also writes
+each row's log-sum-exp; its backward is ``csrc/prefill_attention_bwd.cu``
+(FlashAttention-2's backward on mma.sync: a dK/dV kernel over key
+blocks, a dQ kernel over query blocks, no atomics) on the card and
+``ref.prefill_attention_bwd_ref`` on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 
 HEAD_DIMS = (32, 64, 80, 128, 160, 256)
 GROUPS = (1, 2, 4, 6, 8, 16)         # query heads per kv head
@@ -29,6 +37,7 @@ DTYPE_PAIRS = ((torch.float32, torch.float32),
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _fn = None
+_bwd_fn = None
 _zeros: Dict[torch.device, torch.Tensor] = {}  # read-only (B,) default rows
 
 
@@ -36,11 +45,21 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("prefill_attention").apex_prefill_attention
-        fn.argtypes = [_P, _P, _P, _P, _P, _P,
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         _fn = fn
     return _fn
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("prefill_attention_bwd").apex_prefill_attention_bwd
+        fn.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+        fn.restype = _I
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def _row_vector(x: Optional[torch.Tensor], b: int, device: torch.device,
@@ -93,26 +112,108 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            prefix_len: Optional[torch.Tensor] = None,
                            q_offset: Optional[torch.Tensor] = None, *,
-                           causal: bool = True) -> torch.Tensor:
-    """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D) in q's dtype.  Launches
-    on the current stream, no sync."""
+                           causal: bool = True, return_lse: bool = False):
+    """q (B,T,H,D), k/v (B,S,KV,D) -> (B,T,H,D) in q's dtype; with
+    ``return_lse`` also each row's natural-log log-sum-exp of its scaled
+    scores, (B,H,T) fp32.  Launches on the current stream, no sync."""
     _check(q, k, v)
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     prefix_len = _row_vector(prefix_len, b, q.device, "prefix_len")
     q_offset = _row_vector(q_offset, b, q.device, "q_offset")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), prefix_len.data_ptr(),
-        q_offset.data_ptr(), out.data_ptr(), b, t, s, h, kv, d,
+        q_offset.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None, b, t, s, h, kv, d,
         int(q.dtype == torch.bfloat16),
         int(k.dtype == torch.bfloat16), int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: "
                            f"cudaError {rc}")
     prefill_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 prefill_attention_cuda.launches = 0
+
+
+def prefill_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               lse: torch.Tensor, dout: torch.Tensor,
+                               prefix_len: Optional[torch.Tensor] = None, *,
+                               causal: bool = True):
+    """Gradients of ``prefill_attention_cuda`` (queries at positions
+    0..T-1, no q_offset) from its output ``out``, its log-sum-exp ``lse``
+    (B,H,T) fp32 and dO (B,T,H,D): (dq, dk, dv) in the inputs' dtype,
+    dk and dv summed over each kv head's query heads.  q, k and v share
+    one dtype, fp32 or bf16.  One call launches the delta, dK/dV and dQ
+    kernels on the current stream, no sync."""
+    _check(q, k, v)
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    if k.dtype != q.dtype:
+        raise ValueError(f"the backward takes one dtype for q, k and v; got "
+                         f"q {q.dtype}, k {k.dtype}")
+    for name, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} "
+                             f"{tuple(q.shape)} tensor on {q.device}")
+    if lse.shape != (b, h, t) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, t)} "
+                         f"tensor on {q.device}")
+    prefix_len = _row_vector(prefix_len, b, q.device, "prefix_len")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), prefix_len.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, t, s, h, kv, d, int(q.dtype == torch.bfloat16), int(causal),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"prefill_attention_bwd kernel launch failed: "
+                           f"cudaError {rc}")
+    prefill_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+prefill_attention_bwd_cuda.launches = 0
+
+
+class PrefillAttentionFn(torch.autograd.Function):
+    """Differentiable prefill attention over a span of its own (queries at
+    positions 0..T-1): the kernel and its backward kernel on the card,
+    the plain versions on the CPU (by the tensors' device, as
+    ``kernels.ops``).  Saves q, k, v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_len, causal):
+        if q.device.type == "cpu":
+            out, lse = ref.prefill_attention_ref(q, k, v, prefix_len,
+                                                 causal=causal,
+                                                 return_lse=True)
+        else:
+            out, lse = prefill_attention_cuda(q, k, v, prefix_len,
+                                              causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, prefix_len)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, prefix_len = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.prefill_attention_bwd_ref(
+                q, k, v, out, lse, dout, prefix_len, ctx.causal)
+        else:
+            dq, dk, dv = prefill_attention_bwd_cuda(
+                q, k, v, out, lse, dout, prefix_len, causal=ctx.causal)
+        return dq, dk, dv, None, None

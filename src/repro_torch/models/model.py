@@ -17,7 +17,7 @@ as the reference's engine does.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +57,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 
 def _leaf_to_torch(a: Any, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)   # 0-d stays 0-d
     if not a.flags.writeable:               # torch wants writable memory
         a = a.copy()
     if a.dtype.name == "bfloat16":          # ml_dtypes: bit-exact via uint16
@@ -127,30 +128,44 @@ def _embed_inputs(params: ModelParams, cfg: ModelConfig,
     return embed(params.embedding, inputs["tokens"]), None
 
 
+def _jitter_seed(rng: Optional[torch.Generator]) -> Optional[int]:
+    """One draw from ``rng`` that seeds every layer's router jitter (the
+    reference folds the layer index into its key); None without rng."""
+    if rng is None:
+        return None
+    return int(torch.randint(0, 2 ** 62, (), generator=rng,
+                             device=rng.device))
+
+
 def forward_hidden(params: ModelParams, cfg: ModelConfig,
-                   inputs: Dict[str, torch.Tensor]
+                   inputs: Dict[str, torch.Tensor], *,
+                   rng: Optional[torch.Generator] = None,
+                   remat: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stateless forward up to the final norm: (hidden (B, T, d), the
-    summed MoE load-balance loss (0 without experts)).  A forward only:
-    gradients come with training."""
+    summed MoE load-balance loss (0 without experts)).  Differentiable:
+    autograd follows it through the kernels' backward kernels.  ``rng``
+    draws the MoE router jitter (None: none); ``remat`` recomputes each
+    pattern group in the backward."""
     x, prefix = _embed_inputs(params, cfg, inputs)
     b, t = x.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device)[None, :].expand(b, t)
-    aux: List[torch.Tensor] = []
-    x, _ = transformer.stack_forward(params.blocks, cfg, x, positions, None,
-                                     prefix_len=prefix, aux=aux)
-    total = sum(aux, torch.zeros((), dtype=torch.float32, device=x.device))
-    return rmsnorm(params.final_norm, x, cfg.norm_eps), total
+    x, aux = transformer.stack_forward_stateless(
+        params.blocks, cfg, x, positions, prefix, remat=remat,
+        seed=_jitter_seed(rng))
+    return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
 
 
 def forward_train(params: ModelParams, cfg: ModelConfig,
-                  inputs: Dict[str, torch.Tensor]
+                  inputs: Dict[str, torch.Tensor], *,
+                  rng: Optional[torch.Generator] = None,
+                  remat: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stateless forward of every position: (logits (B, T, V), aux
     loss).  The encoder's (``causal=False``) path; on the VLM, T counts
     the patches too."""
-    x, aux = forward_hidden(params, cfg, inputs)
+    x, aux = forward_hidden(params, cfg, inputs, rng=rng, remat=remat)
     return unembed(params.embedding, x), aux
 
 

@@ -30,6 +30,15 @@ patch prefix) into ``kernels.ops.prefill_attention`` on every forward;
 the stateless forward (``model.forward_train``) attends over the span
 itself, as the reference's does.
 
+The stateless forward is the training path: recurrent blocks start from
+fresh zero state and nothing is written in place, so autograd follows it
+through both kernels' ``torch.autograd.Function``s.  ``remat`` recomputes
+each pattern group in the backward
+(``torch.utils.checkpoint.checkpoint``, the reference's
+``jax.checkpoint(group)``); router jitter draws from a generator seeded
+per layer (the reference's ``fold_in(rng, layer)``), so the recompute
+draws the same noise.
+
 An entry's FFN is an MoE (``models.moe``) where
 ``cfg.ffn_kind_for_entry(j)`` says so at init (every ``moe_period``-th
 entry), and wherever a ``router`` leaf is present at apply time, in every
@@ -43,6 +52,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import moe, ssm
@@ -176,15 +186,17 @@ def layer_params(blocks: Tuple[Params, ...], j: int, g: int) -> Params:
 
 
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
-         aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+         aux: Optional[List[torch.Tensor]] = None,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Residual FFN over x (B, T, d); x itself where the entry has none.
     A ``router`` leaf marks an MoE, whose load-balance loss is appended
-    to ``aux`` when given (a training term: serving drops it)."""
+    to ``aux`` when given (a training term: serving drops it);
+    ``generator`` draws its router jitter (training only)."""
     if "ffn" not in p:
         return x
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "router" in p["ffn"]:
-        out, loss = moe.moe_ffn(p["ffn"], h2, cfg.moe)
+        out, loss = moe.moe_ffn(p["ffn"], h2, cfg.moe, generator=generator)
         if aux is not None:
             aux.append(loss)
         return x + out
@@ -196,7 +208,8 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
                vc: Optional[torch.Tensor], lengths: Optional[torch.Tensor],
                inv_freq: torch.Tensor,
                prefix_len: Optional[torch.Tensor] = None,
-               aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+               aux: Optional[List[torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Attention block over x (B, T, d).  With a cache (kc, vc: this
     layer's (B, S, KV, D)), the span is written in place at [lengths,
     lengths + T) and attended over the cache; without one (the stateless
@@ -207,7 +220,8 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if kc is None:
         attn = ops.prefill_attention(q, k, v, prefix_len,
                                      causal=cfg.causal)
-        return _ffn(p, cfg, x + attention_output(p["attn"], attn), aux)
+        return _ffn(p, cfg, x + attention_output(p["attn"], attn), aux,
+                    generator)
     b, t = x.shape[:2]
     rows = torch.arange(b, device=x.device)[:, None]
     # padding past the cache end lands on its last column, which no real
@@ -229,8 +243,7 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  st: ssm.MambaState, g: int,
-                 valid_lens: Optional[torch.Tensor],
-                 aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                 valid_lens: Optional[torch.Tensor]) -> torch.Tensor:
     """Mamba block over x (B, T, d); group g of the entry's state ``st``
     is updated in place (rows with valid_lens 0 keep theirs): the scan
     writes the SSM state straight back into its slice."""
@@ -243,7 +256,7 @@ def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, new = ssm.mamba_forward_chunk(p["mamba"], cfg.mamba, h, carried,
                                          valid_lens, h_out=st.ssm[g])
     st.conv[g].copy_(new.conv)
-    return _ffn(p, cfg, x + y, aux)
+    return _ffn(p, cfg, x + y)
 
 
 _XLSTM_FORWARD = {BlockKind.SLSTM: ssm.slstm_forward,
@@ -266,55 +279,111 @@ def _xlstm_block(p: Params, cfg: ModelConfig, kind: BlockKind,
     return x + y
 
 
-def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
-                  x: torch.Tensor, positions: torch.Tensor,
-                  state: Optional[StackState],
-                  valid_lens: Optional[torch.Tensor] = None,
-                  prefix_len: Optional[torch.Tensor] = None,
-                  aux: Optional[List[torch.Tensor]] = None
-                  ) -> Tuple[torch.Tensor, Optional[StackState]]:
-    """Run the stack over a (right-padded) token span.
+def _stateless_group(group: Tuple[Params, ...], cfg: ModelConfig, g: int,
+                     x: torch.Tensor, positions: torch.Tensor,
+                     inv_freq: torch.Tensor,
+                     prefix_len: Optional[torch.Tensor],
+                     seed: Optional[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group g's entries (``group[j]``: entry j's parameters at group g)
+    over the span: recurrent blocks from fresh zero state, nothing
+    written in place.  Returns (x, the group's MoE
+    load-balance loss): as the reference's stateless scan takes it, the
+    last pattern entry's only (on Jamba, one of its four MoE entries;
+    ROADMAP queue 3)."""
+    b = x.shape[0]
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, kind in enumerate(cfg.block_pattern):
+        p = group[j]
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(
+                seed + g * cfg.pattern_period + j)
+        entry_aux: List[torch.Tensor] = []
+        if kind == BlockKind.ATTN:
+            x = _attn_full(p, cfg, x, positions, None, None, None, inv_freq,
+                           prefix_len, entry_aux, gen)
+        elif kind == BlockKind.MAMBA:
+            zero = ssm.mamba_init_state(cfg.mamba, cfg.d_model, b,
+                                        device=x.device)
+            y, _ = ssm.mamba_forward(p["mamba"], cfg.mamba,
+                                     rmsnorm(p["ln1"], x, cfg.norm_eps), zero)
+            x = _ffn(p, cfg, x + y, entry_aux, gen)
+        else:
+            init = ssm.slstm_init_state if kind == BlockKind.SLSTM \
+                else ssm.mlstm_init_state
+            zero = init(cfg.d_model, cfg.num_heads, b, device=x.device)
+            y, _ = _XLSTM_FORWARD[kind](p[kind.value],
+                                        rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                        zero, cfg.num_heads)
+            x = x + y
+        loss = entry_aux[0] if entry_aux else torch.zeros_like(loss)
+    return x, loss
 
-    With a ``state``, the span's K/V and recurrent state are written into
-    it in place and (x, state with lengths + T) is returned;
-    ``valid_lens`` (B,) counts each row's real tokens: recurrent blocks
-    freeze their state past it, attention ignores it (the absolute-
-    position causal mask already hides padded positions).  A chunk of a
-    prefill advances the lengths by its real tokens instead
-    (``model.prefill_chunk``).  Without one (the stateless forward),
-    attention sees the span alone, recurrent blocks start from zero
-    state, and (x, None) is returned.  ``prefix_len`` (B,) makes keys
-    below it visible to every query (prefix-LM).  MoE load-balance losses
-    go into ``aux`` when given: as the reference's stateless scan does,
-    only the last pattern entry's of each group (on Jamba, one of its
-    four MoE entries; ROADMAP queue 3)."""
+
+def stack_forward_stateless(blocks: Tuple[Params, ...], cfg: ModelConfig,
+                            x: torch.Tensor, positions: torch.Tensor,
+                            prefix_len: Optional[torch.Tensor] = None, *,
+                            remat: bool = False,
+                            seed: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stateless forward over a span (``model.forward_train``):
+    attention over the span itself, recurrent blocks from zero state,
+    nothing written in place.  Returns (x, the MoE load-balance loss
+    summed over groups).  ``remat`` recomputes each group in the backward
+    when a gradient is being taken; ``seed`` seeds the router jitter of
+    layer l with ``seed + l`` (None: no jitter)."""
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                 x.device)
-    entries = state.per_entry if state is not None else tuple(
-        None if kind == BlockKind.ATTN else
-        recurrent_state_init(cfg, kind, x.shape[0], x.device)
-        for kind in cfg.block_pattern)
-    lengths = state.lengths if state is not None else None
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    recompute = remat and torch.is_grad_enabled()
+    # every stacked leaf unbound once: the backward then writes each
+    # leaf's gradient with one stack of its G slices (indexing it per
+    # group would zero-fill and add a whole (G, ...) tensor per layer)
+    per_group = [{name: {k: w.unbind(0) for k, w in sub.items()}
+                  for name, sub in entry.items()} for entry in blocks]
+    for g in range(cfg.num_groups):
+        group = tuple({name: {k: ws[g] for k, ws in sub.items()}
+                       for name, sub in entry.items()} for entry in per_group)
+        args = (group, cfg, g, x, positions, inv_freq, prefix_len, seed)
+        if recompute:
+            x, loss = torch.utils.checkpoint.checkpoint(
+                _stateless_group, *args, use_reentrant=False)
+        else:
+            x, loss = _stateless_group(*args)
+        total = total + loss
+    return x, total
+
+
+def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  state: StackState,
+                  valid_lens: Optional[torch.Tensor] = None,
+                  prefix_len: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, StackState]:
+    """Run the stack over a (right-padded) token span, writing its K/V and
+    recurrent state into ``state`` in place; returns (x, state with
+    lengths + T).  ``valid_lens`` (B,) counts each row's real tokens:
+    recurrent blocks freeze their state past it, attention ignores it
+    (the absolute-position causal mask already hides padded positions).
+    A chunk of a prefill advances the lengths by its real tokens instead
+    (``model.prefill_chunk``).  ``prefix_len`` (B,) makes keys below it
+    visible to every query (prefix-LM).  The stateless forward is
+    ``stack_forward_stateless``."""
+    inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
+                                x.device)
+    lengths = state.lengths
     for g in range(cfg.num_groups):
         for j, kind in enumerate(cfg.block_pattern):
             p = layer_params(blocks, j, g)
-            entry = entries[j]
-            entry_aux: Optional[List[torch.Tensor]] = \
-                None if aux is None else []
+            entry = state.per_entry[j]
             if kind == BlockKind.MAMBA:
-                x = _mamba_block(p, cfg, x, entry, g, valid_lens, entry_aux)
+                x = _mamba_block(p, cfg, x, entry, g, valid_lens)
             elif kind != BlockKind.ATTN:
                 x = _xlstm_block(p, cfg, kind, x, entry, g, valid_lens)
-            elif entry is None:
-                x = _attn_full(p, cfg, x, positions, None, None, None,
-                               inv_freq, prefix_len, entry_aux)
             else:
                 x = _attn_full(p, cfg, x, positions, entry.k[g], entry.v[g],
-                               lengths, inv_freq, prefix_len, entry_aux)
-        if aux is not None:
-            aux.extend(entry_aux)
-    if state is None:
-        return x, None
+                               lengths, inv_freq, prefix_len)
     return x, StackState(per_entry=state.per_entry,
                          lengths=state.lengths + x.shape[1])
 

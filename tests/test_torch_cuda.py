@@ -10,8 +10,10 @@ torch = pytest.importorskip("torch")  # the port needs PyTorch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.mamba_scan import mamba_selective_scan_cuda
-from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+from repro_torch.kernels.mamba_scan import (mamba_selective_scan_bwd_cuda,
+                                            mamba_selective_scan_cuda)
+from repro_torch.kernels.prefill_attention import (prefill_attention_bwd_cuda,
+                                                   prefill_attention_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -347,3 +349,84 @@ def test_prefill_new_geometries(gen, h, kv, d, dtype, tol):
     off = torch.full((b,), 37, dtype=torch.int32, device="cuda")
     tail = prefill_attention_cuda(q[:, 37:].contiguous(), k, v, None, off)
     assert torch.equal(tail, whole[:, 37:])
+
+
+# (H, KV, D) covering every query group (1/2/4/6/8/16) and head_dim
+# (32/64/80/128/160/256) the backward kernel is built for
+BWD_GEOMETRIES = [(4, 4, 64), (8, 4, 128), (8, 2, 32), (12, 2, 80),
+                  (16, 2, 160), (16, 1, 256)]
+
+
+def _rel_close(got, want, tol):
+    """max |got - want| within tol of max |want| (the gradients' sums
+    grow with T and G, so the bar is relative to their scale)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert err <= tol * max(scale, 1e-6), (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_lse_output(gen, dtype):
+    """The forward's log-sum-exp against the plain one, and the output
+    with it bitwise the output without it."""
+    b, t, h, kv, d = 2, 77, 8, 2, 64
+    q, k, v = (_randn(gen, (b, t, n, d), dtype) for n in (h, kv, kv))
+    prefix = torch.tensor([40, 3], dtype=torch.int32, device="cuda")
+    for causal in (True, False):
+        out, lse = prefill_attention_cuda(q, k, v, prefix, causal=causal,
+                                          return_lse=True)
+        assert torch.equal(out, prefill_attention_cuda(q, k, v, prefix,
+                                                       causal=causal))
+        _, want = ref.prefill_attention_ref(q, k, v, prefix, causal=causal,
+                                            return_lse=True)
+        torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("h,kv,d", BWD_GEOMETRIES)
+@pytest.mark.parametrize("mask", ["causal", "prefix", "full"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_prefill_bwd_kernel_matches_plain(gen, h, kv, d, mask, dtype, tol):
+    """dq, dk, dv against the plain backward on the same forward output
+    and log-sum-exp: odd T over several query and key blocks, a prefix
+    past the first blocks on one row; twice, bitwise the same."""
+    b, t = 2, 77
+    q, k, v = (_randn(gen, (b, t, n, d), dtype) for n in (h, kv, kv))
+    prefix = torch.tensor([45, 0], dtype=torch.int32, device="cuda") \
+        if mask == "prefix" else None
+    causal = mask != "full"
+    out, lse = prefill_attention_cuda(q, k, v, prefix, causal=causal,
+                                      return_lse=True)
+    dout = _randn(gen, (b, t, h, d), dtype)
+    got = prefill_attention_bwd_cuda(q, k, v, out, lse, dout, prefix,
+                                     causal=causal)
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, dout, prefix,
+                                         causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _rel_close(g, w, tol)
+    again = prefill_attention_bwd_cuda(q, k, v, out, lse, dout, prefix,
+                                       causal=causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("t", [1, 21, 64])
+def test_scan_bwd_kernel_matches_plain(gen, n, t):
+    """Every gradient of the scan against the plain backward: a ragged I,
+    T across and inside one checkpoint chunk, a nonzero h0 and the final
+    state's gradient, with and without it; twice, bitwise the same."""
+    b, i = 3, 200
+    dt, x, bb, cc, a_neg, d_skip, h0 = _scan_args(gen, b, t, i, n,
+                                                  torch.float32)
+    dy = _randn(gen, (b, t, i), torch.float32)
+    dh = _randn(gen, (b, i, n), torch.float32)
+    for dh_final in (dh, None):
+        args = (dt, x, bb, cc, a_neg, d_skip, h0, dy, dh_final)
+        got = mamba_selective_scan_bwd_cuda(*args)
+        want = ref.mamba_selective_scan_bwd_ref(*args)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            _rel_close(g, w, 1e-5)
+        again = mamba_selective_scan_bwd_cuda(*args)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))

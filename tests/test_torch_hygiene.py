@@ -35,9 +35,16 @@ def test_port_files_exist():
     for module in ("serving/gateway/__init__", "serving/gateway/pool",
                    "serving/gateway/metrics", "serving/gateway/http",
                    "serving/gateway/client", "serving/simulator",
-                   "launch/gateway"):
+                   "launch/gateway", "training/__init__",
+                   "training/optimizer", "training/train_step",
+                   "training/checkpoint", "core/tree", "launch/train"):
         assert f"src/repro_torch/{module}.py" in names
     assert len(names) > 20
+    # the import check below runs over every file found here, training/
+    # and launch/train.py among them; the backward kernels' sources
+    for source in ("prefill_attention_bwd", "mamba_scan_bwd"):
+        assert (ROOT / "src" / "repro_torch" / "csrc"
+                / f"{source}.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

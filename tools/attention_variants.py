@@ -97,7 +97,7 @@ def build_variants() -> dict:
             fn.argtypes = [P] * 8 + [I] * 8 + [P]
         else:
             fn = lib.apex_prefill_attention
-            fn.argtypes = [P] * 6 + [I] * 9 + [P]
+            fn.argtypes = [P] * 7 + [I] * 9 + [P]
         fn.restype = I
         fns[key] = fn
     return fns
@@ -143,8 +143,8 @@ def prefill(fns, gen, card) -> None:
 
             def call(fn=fn):
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        zero.data_ptr(), zero.data_ptr(), out.data_ptr(), b,
-                        t, s, h, kv, d, 1, 1, 1, stream)
+                        zero.data_ptr(), zero.data_ptr(), out.data_ptr(),
+                        None, b, t, s, h, kv, d, 1, 1, 1, stream)
                 if rc:
                     raise SystemExit(f"{name}: cudaError {rc}")
             call()
