@@ -1025,6 +1025,36 @@ def ptxas_report(logs: dict) -> None:
         f"chiprun_out/ptxas.txt")
 
 
+def check_bwd_builds(logs: dict) -> None:
+    """The backward kernels' builds: the wgmma route's dK/dV and dQ
+    kernels at D 64 and 128 are in the attention library (their ptxas
+    entries name them), and the scan backward takes at most 128
+    registers a thread with no spill (two CTAs of 256 threads an SM)."""
+    import re
+    att = logs.get("prefill_attention_bwd", "")
+    for kern in ("dkdv_wgmma_kernel", "dq_wgmma_kernel"):
+        for d in (64, 128):
+            if not re.search(rf"{kern}ILi{d}E", att):
+                fail(f"no {kern}<{d}> in the attention backward's build")
+    name = None
+    for line in logs.get("mamba_scan_bwd", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name and "scan_bwd_kernel" in name and int(m.group(1)):
+            fail(f"{name} spills {m.group(1)} bytes")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and "scan_bwd_kernel" in name:
+            n = name.split("ILi")[1].split("E")[0]
+            log(f"  [ptxas] scan backward N {n}: {m.group(1)} registers, "
+                "no spill")
+            if int(m.group(1)) > 128:
+                fail(f"{name} takes {m.group(1)} registers (at most 128)")
+    log("  [ptxas] attention backward: dkdv_wgmma_kernel and "
+        "dq_wgmma_kernel built at D 64 and 128")
+
+
 def graph_launches(fn, calls: int, kernel: str) -> dict:
     """What ``calls`` calls of ``fn`` put on the stream, by graph node
     type, with launches of ``kernel`` apart: the calls are captured in
@@ -1207,7 +1237,9 @@ def _record(name, source, replaces, err, times, nbytes, flops, dt,
 
 # attention backward cases, (label, B, T, H, KV, D, causal, prefix, dtype):
 # llama3.1-8b's and Jamba's training shapes, the registry's other head
-# geometries, and an fp32 (FMA) case
+# geometries, an fp32 (FMA) case, and the wgmma route's ragged edges: T
+# not a multiple of its 64-query and 64-key tiles, and a prefix that
+# ends inside a key block
 ATTN_BWD_CASES = [
     ("llama3.1-8b train", 2, 1024, 32, 8, 128, True, 0, "bfloat16"),
     ("jamba train", 1, 1024, 64, 8, 128, True, 0, "bfloat16"),
@@ -1217,15 +1249,21 @@ ATTN_BWD_CASES = [
     ("paligemma-3b prefix", 2, 288, 8, 1, 256, True, 256, "bfloat16"),
     ("hubert-xlarge full", 2, 500, 16, 16, 80, False, 0, "bfloat16"),
     ("llama3.1-8b fp32", 1, 128, 32, 8, 128, True, 0, "float32"),
+    ("ragged T 1000 G4", 1, 1000, 16, 4, 128, True, 0, "bfloat16"),
+    ("prefix 200 over a key block", 2, 320, 16, 4, 128, True, 200,
+     "bfloat16"),
 ]
 # bf16 gradients carry the probabilities and dS rounded to bf16 before the
 # products; fp32 ones differ from the plain version by sums in other
 # orders (each bar relative to the gradient's largest |element|)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
-# scan backward cases, (label, B, T, I, N): a reduced width, Jamba's at
-# T 256, and Jamba's training shape (the train phase's B 1 x T 1024),
+# scan backward cases, (label, B, T, I, N): a reduced width, one whose T
+# is not a multiple of the 16-step checkpoint interval, Jamba's at T
+# 256, and Jamba's training shape (the train phase's B 1 x T 1024),
 # where the record is taken
-SCAN_BWD_CASES = [("reduced", 2, 256, 1024, 16), ("jamba", 2, 256, 16384, 16),
+SCAN_BWD_CASES = [("reduced", 2, 256, 1024, 16),
+                  ("ragged T 1000", 2, 1000, 1024, 16),
+                  ("jamba", 2, 256, 16384, 16),
                   ("jamba train", 1, 1024, 16384, 16)]
 # the scan's gradients sum 16384 channels (db, dc) and B*T steps (dA, dD)
 # in other orders than the plain loop
@@ -1257,7 +1295,8 @@ def check_attention_bwd(gen) -> dict:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.prefill_attention import (
-        prefill_attention_bwd_cuda, prefill_attention_cuda)
+        prefill_attention_bwd_cuda, prefill_attention_bwd_route,
+        prefill_attention_cuda)
     errs = {}
     for label, b, t, h, kv, d, causal, prefix, dtype in ATTN_BWD_CASES:
         q, k, v, do, pre = _attn_bwd_case(gen, b, t, h, kv, d, causal,
@@ -1278,9 +1317,11 @@ def check_attention_bwd(gen) -> dict:
         abs_err = max(float((g.float() - w.float()).abs().max())
                       for g, w in zip(got, want))
         same = all(torch.equal(a, g) for a, g in zip(again, got))
+        route = prefill_attention_bwd_route(d, q.dtype)
         log(f"  prefill_attention_bwd {label} B{b} T{t} H{h} KV{kv} D{d} "
             f"{'causal' if causal else 'full'}"
-            f"{f', prefix {prefix}' if prefix else ''} {dtype}: dq/dk/dv "
+            f"{f', prefix {prefix}' if prefix else ''} {dtype} ({route}): "
+            f"dq/dk/dv "
             f"max |err| / max |grad| {err:.3e} (bar {BWD_TOL[dtype]}), lse "
             f"max |err| {lse_err:.3e}, repeat bitwise {same}")
         if err > BWD_TOL[dtype] or lse_err > 1e-3 or not same:
@@ -1303,14 +1344,16 @@ def _attn_bwd_bound(b, t, h, kv, d, pairs, el):
 def bench_attention_bwd(gen, errs) -> dict:
     """The record: the attention backward at llama3.1-8b's training shape
     (B 2, T 1024, 32/8 heads of 128, causal, bf16) -- kernel, plain
-    backward, and as the yardstick autograd through
-    ``scaled_dot_product_attention``'s forward and backward (timed only);
-    Jamba's shape (64/8) beside it."""
+    backward, and as the yardstick ``scaled_dot_product_attention``'s
+    backward alone (``torch.autograd.grad`` on a saved output, the graph
+    retained; timed only), its forward + backward beside it; Jamba's
+    shape (64/8) too."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.prefill_attention import (
-        prefill_attention_bwd_cuda, prefill_attention_cuda)
+        prefill_attention_bwd_cuda, prefill_attention_bwd_route,
+        prefill_attention_cuda)
     rec = None
     for label, b, t, h, kv, d, causal, prefix, dtype in ATTN_BWD_CASES[:2]:
         q, k, v, do, pre = _attn_bwd_case(gen, b, t, h, kv, d, causal,
@@ -1320,10 +1363,17 @@ def bench_attention_bwd(gen, errs) -> dict:
                       for x in (q, k, v))
         dot = do.transpose(1, 2)
 
-        def library():
+        def sdpa_fwd_bwd():
             o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                enable_gqa=True)
             return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        saved = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(saved, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
         def kernel():
             return prefill_attention_bwd_cuda(q, k, v, out, lse, do, pre)
@@ -1346,17 +1396,24 @@ def bench_attention_bwd(gen, errs) -> dict:
                           errs[label][0], times, nbytes, flops,
                           "bfloat16", shape)
             rec["library"] = ("torch.nn.functional.scaled_dot_product_"
-                              "attention forward + backward (autograd)")
+                              "attention backward alone (autograd.grad on "
+                              "a saved output)")
+            # "route" stays "cuda" (the record's contract); which of the
+            # library's three kernel pairs ran goes beside it
+            rec["kernel_route"] = prefill_attention_bwd_route(d, q.dtype)
             rec["cases_rel_err"] = {k: v[1] for k, v in errs.items()}
         fb = time_ms(fwd_bwd, reps=10)
+        lib_fb = time_ms(sdpa_fwd_bwd, reps=10)
         lib = time_ms(library, reps=10)
         bwd = time_ms(kernel, reps=10)
         log(f"  {shape}: CUDA events per call: backward kernel {bwd:.4f} "
-            f"ms, forward + backward kernels {fb:.4f} ms, SDPA forward + "
-            f"backward {lib:.4f} ms [{CARD}]")
+            f"ms, forward + backward kernels {fb:.4f} ms; SDPA backward "
+            f"alone {lib:.4f} ms, forward + backward {lib_fb:.4f} ms "
+            f"[{CARD}]")
         rec.setdefault("fwd_bwd", {})[label] = {
-            "ms_events": fb, "library_ms_events": lib, "bwd_ms_events": bwd}
-        del q, k, v, do, out, lse, qt, kt, vt
+            "ms_events": fb, "library_fwd_bwd_ms_events": lib_fb,
+            "library_bwd_ms_events": lib, "bwd_ms_events": bwd}
+        del q, k, v, do, out, lse, qt, kt, vt, saved
     return rec
 
 
@@ -1450,6 +1507,7 @@ def phase_kernels() -> dict:
     log(f"built {', '.join(build.KERNELS)} with nvcc in "
         f"{time.perf_counter() - t0:.1f} s")
     ptxas_report(logs)
+    check_bwd_builds(logs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_sweeps(gen)
     check_chunk_split_bitwise(gen)

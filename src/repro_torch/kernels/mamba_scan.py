@@ -23,9 +23,9 @@ of the stacked state this way, with no copy.
 Training: ``MambaScanFn`` is the autograd Function of the stateless
 forward (every token real, no ``h_out``).  Its forward is this kernel;
 its backward is ``csrc/mamba_scan_bwd.cu`` (a reverse scan from states
-checkpointed every 8 steps, db/dc/dA/dD reduced in a second pass, no
-atomics) on the card and ``ref.mamba_selective_scan_bwd_ref`` on the
-CPU.
+checkpointed every 16 steps, db/dc reduced across channels by warp
+shuffles, then with dA/dD in a second pass, no atomics) on the card and
+``ref.mamba_selective_scan_bwd_ref`` on the CPU.
 """
 from __future__ import annotations
 
@@ -173,9 +173,10 @@ def mamba_selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
     """Gradients of ``mamba_selective_scan_cuda`` over every step (no
     lens), fp32 inputs only: dy (B,T,I) and the final state's gradient
     (B,I,N) or None -> (ddt, dx, db, dc, da_neg, dd_skip, dh0), fp32.
-    Scratch: h every 8 steps (B, T/8, I, N) and the per-block partial
-    sums.  One call launches the reverse scan and its reduction on the
-    current stream, no sync."""
+    Scratch: h at the start of every checkpoint chunk (the library's
+    ``apex_mamba_scan_bwd_chunk``, 16 steps: (B, T/16, I, N)) and the
+    per-block partial sums.  One call launches the reverse scan and its
+    reduction on the current stream, no sync."""
     _check(dt, x, b, c, a_neg, d_skip, h0, None, None)
     if dt.dtype != torch.float32:
         raise ValueError(f"the scan's backward takes fp32 inputs; got "

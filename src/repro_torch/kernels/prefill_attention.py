@@ -13,8 +13,10 @@ bitwise the same however its prompt is split into chunks.
 Training: ``PrefillAttentionFn`` is the autograd Function of the
 stateless forward.  Its forward is this kernel, which then also writes
 each row's log-sum-exp; its backward is ``csrc/prefill_attention_bwd.cu``
-(FlashAttention-2's backward on mma.sync: a dK/dV kernel over key
-blocks, a dQ kernel over query blocks, no atomics) on the card and
+(FlashAttention-2's split: a dK/dV kernel over key blocks, a dQ kernel
+over query blocks, no atomics; on wgmma with TMA-fed tiles at bf16 head
+dims 64 and 128, on mma.sync at the other bf16 head dims, plain FMA at
+fp32 -- ``prefill_attention_bwd_route`` names the route) on the card and
 ``ref.prefill_attention_bwd_ref`` on the CPU.
 """
 from __future__ import annotations
@@ -185,6 +187,21 @@ def prefill_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 prefill_attention_bwd_cuda.launches = 0
+
+_BWD_ROUTES = {0: "fma", 1: "mma.sync", 2: "wgmma"}
+
+
+def prefill_attention_bwd_route(d: int, dtype: torch.dtype) -> str:
+    """The kernels ``prefill_attention_bwd_cuda`` launches at head_dim
+    ``d`` and ``dtype``, as the library's dispatch says: "wgmma" (bf16 at
+    D 64 and 128), "mma.sync" (the other bf16 head_dims) or "fma" (fp32)."""
+    fn = build.load("prefill_attention_bwd").apex_prefill_attention_bwd_route
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    route = fn(d, int(dtype == torch.bfloat16))
+    if route < 0:
+        raise ValueError(f"no backward kernel takes head_dim {d}")
+    return _BWD_ROUTES[route]
 
 
 class PrefillAttentionFn(torch.autograd.Function):

@@ -448,7 +448,10 @@ class EngineReplicaPool:
     def _replica_died(self, dead: Replica) -> None:
         """Runs on the dying driver thread: rebuild the replica from
         the factory (in-flight requests were already failed by the
-        crash handler) unless the pool is closing."""
+        crash handler) unless the pool is closing.  The fresh replica's
+        driver starts before it is published, both under the pool's
+        lock: ``shutdown`` then never meets a replica whose driver
+        thread it cannot join, and routing never sees one half set up."""
         with self._lock:
             if self._closing or not self._auto_respawn:
                 return
@@ -461,13 +464,15 @@ class EngineReplicaPool:
             if self._closing:
                 fresh.server.shutdown()
                 return
+            self._start_replica(fresh)
             self.replicas[dead.index] = fresh
             self.respawns += 1
-        self._start_replica(fresh)
 
     # --- routing ---------------------------------------------------------
     def live_replicas(self) -> List[Replica]:
-        return [r for r in self.replicas if r.alive]
+        with self._lock:
+            reps = list(self.replicas)
+        return [r for r in reps if r.alive]
 
     def least_loaded(self) -> Replica:
         live = self.live_replicas()
@@ -484,12 +489,11 @@ class EngineReplicaPool:
         if session_id is not None:
             with self._lock:
                 pin = self._sessions.get(session_id)
-            if pin is not None:
-                idx, gen = pin
-                if idx < len(self.replicas):
-                    rep = self.replicas[idx]
-                    if rep.alive and rep.generation == gen:
-                        return rep
+                pinned = (self.replicas[pin[0]] if pin is not None
+                          and pin[0] < len(self.replicas) else None)
+            if pinned is not None and pinned.alive \
+                    and pinned.generation == pin[1]:
+                return pinned
         rep = self.least_loaded()
         if session_id is not None:
             with self._lock:

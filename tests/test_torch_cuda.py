@@ -12,8 +12,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.mamba_scan import (mamba_selective_scan_bwd_cuda,
                                             mamba_selective_scan_cuda)
-from repro_torch.kernels.prefill_attention import (prefill_attention_bwd_cuda,
-                                                   prefill_attention_cuda)
+from repro_torch.kernels.prefill_attention import (
+    prefill_attention_bwd_cuda, prefill_attention_bwd_route,
+    prefill_attention_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -410,6 +411,30 @@ def test_prefill_bwd_kernel_matches_plain(gen, h, kv, d, mask, dtype, tol):
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+@pytest.mark.parametrize("b,t,h,kv,d,prefix", [
+    (1, 1000, 16, 4, 128, None),          # T past the last full tiles
+    (2, 320, 16, 4, 128, (200, 130)),     # prefixes ending inside a block
+    (2, 200, 8, 2, 64, (70, 0)),          # D 64, ragged T and prefix
+])
+def test_prefill_bwd_wgmma_ragged_edges(gen, b, t, h, kv, d, prefix):
+    """The wgmma route at the edges of its 64-query and 64-key tiles: T
+    not a multiple of either, prefixes that end inside a key block;
+    against the plain backward, twice, bitwise the same."""
+    assert prefill_attention_bwd_route(d, torch.bfloat16) == "wgmma"
+    q, k, v = (_randn(gen, (b, t, n, d), torch.bfloat16)
+               for n in (h, kv, kv))
+    pre = None if prefix is None else torch.tensor(
+        prefix, dtype=torch.int32, device="cuda")
+    out, lse = prefill_attention_cuda(q, k, v, pre, return_lse=True)
+    dout = _randn(gen, (b, t, h, d), torch.bfloat16)
+    got = prefill_attention_bwd_cuda(q, k, v, out, lse, dout, pre)
+    want = ref.prefill_attention_bwd_ref(q, k, v, out, lse, dout, pre)
+    for g, w in zip(got, want):
+        _rel_close(g, w, 2e-2)
+    again = prefill_attention_bwd_cuda(q, k, v, out, lse, dout, pre)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
 @pytest.mark.parametrize("n", [8, 16])
 @pytest.mark.parametrize("t", [1, 21, 64])
 def test_scan_bwd_kernel_matches_plain(gen, n, t):
@@ -430,3 +455,22 @@ def test_scan_bwd_kernel_matches_plain(gen, n, t):
             _rel_close(g, w, 1e-5)
         again = mamba_selective_scan_bwd_cuda(*args)
         assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_scan_bwd_ragged_checkpoint_interval(gen, n):
+    """T 1000, not a multiple of the 16-step checkpoint interval, over a
+    ragged I (300 channels: CTAs of 64 at N 16, of 128 at N 8); against
+    the plain backward, twice, bitwise the same."""
+    b, t, i = 2, 1000, 300
+    dt, x, bb, cc, a_neg, d_skip, h0 = _scan_args(gen, b, t, i, n,
+                                                  torch.float32)
+    dy = _randn(gen, (b, t, i), torch.float32)
+    dh = _randn(gen, (b, i, n), torch.float32)
+    args = (dt, x, bb, cc, a_neg, d_skip, h0, dy, dh)
+    got = mamba_selective_scan_bwd_cuda(*args)
+    want = ref.mamba_selective_scan_bwd_ref(*args)
+    for g, w in zip(got, want):
+        _rel_close(g, w, 1e-4)
+    again = mamba_selective_scan_bwd_cuda(*args)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))

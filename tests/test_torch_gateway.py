@@ -39,6 +39,7 @@ from repro_torch.serving import (EngineReplicaPool, InferenceServer,
                                  ServerConfig)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.gateway import render_prometheus, serve_in_thread
+from repro_torch.serving.gateway.pool import Replica
 from repro_torch.serving.gateway.client import get_json, get_text, sse_chat
 
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
@@ -339,6 +340,88 @@ def test_session_affinity_sticky_and_failover(served):
         assert rep2.alive
         assert (rep2.index, rep2.generation) != (rep.index, rep.generation)
         assert pool.route("conv-a").index == rep2.index
+
+
+def test_respawn_starts_before_it_is_published(served, monkeypatch):
+    """The respawned replica's driver starts before the pool publishes
+    it: held inside ``Replica.start``, the fresh replica is not yet in
+    ``pool.replicas``, so a concurrent ``shutdown`` waits for it and then
+    joins its running driver (it used to meet a published replica whose
+    thread had not started, and ``join`` raised)."""
+    _, _, cfg, params = served
+    entered, go = threading.Event(), threading.Event()
+    published = []
+    holder = []
+    start = Replica.start
+
+    def held_start(self, on_death=None):
+        if self.generation > 0:
+            published.append(any(r is self for r in holder[0].replicas))
+            entered.set()
+            assert go.wait(WAIT)
+        start(self, on_death)
+
+    monkeypatch.setattr(Replica, "start", held_start)
+    pool = EngineReplicaPool(_factory(cfg, params), replicas=2)
+    holder.append(pool)
+    errors = []
+
+    def shutdown():
+        try:
+            pool.shutdown()
+        except BaseException as exc:     # pragma: no cover - the old race
+            errors.append(exc)
+
+    try:
+        pool.inject_fault(0)
+        assert entered.wait(WAIT)
+        assert published == [False]
+        assert pool.replicas[0].generation == 0
+        closer = threading.Thread(target=shutdown)
+        closer.start()
+    finally:
+        go.set()
+    closer.join(WAIT)
+    assert not closer.is_alive() and errors == []
+    assert pool.respawns == 1 and pool.replicas[0].generation == 1
+    assert not any(r.driver_alive for r in pool.replicas)
+
+
+def test_routing_while_respawn_builds(served):
+    """While the respawn is held inside the factory, a pinned session
+    routes to the live replica; a shutdown then closes the pool and the
+    fresh replica is shut down unpublished."""
+    _, _, cfg, params = served
+    building, go = threading.Event(), threading.Event()
+    builds = []
+    make = _factory(cfg, params)
+
+    def factory():
+        builds.append(1)
+        if len(builds) > 2:              # the respawn of replica 0
+            building.set()
+            assert go.wait(WAIT)
+        return make()
+
+    pool = EngineReplicaPool(factory, replicas=2)
+    closer = threading.Thread(target=pool.shutdown)
+    try:
+        rep = pool.route("conv-a")
+        assert rep.index == 0
+        pool.inject_fault(0)
+        assert building.wait(WAIT)
+        assert not pool.replicas[0].alive
+        rep2 = pool.route("conv-a")
+        assert rep2.alive and rep2.index == 1
+        assert pool.route("conv-a") is rep2
+        closer.start()
+        assert _wait_for(lambda: pool._closing, timeout=WAIT)
+    finally:
+        go.set()
+    closer.join(WAIT)
+    assert not closer.is_alive()
+    assert pool.respawns == 0 and pool.replicas[0].generation == 0
+    assert not pool.replicas[0].alive and len(builds) == 3
 
 
 def test_session_affinity_over_http(gateway_stack):

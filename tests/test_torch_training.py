@@ -563,6 +563,57 @@ def test_scan_bwd_ref_matches_autograd_and_jax():
         assert torch.equal(w, m)
 
 
+@pytest.mark.parametrize("t,pre", [(1000, None), (320, (200, 130))])
+def test_attention_bwd_ref_ragged_tiles_matches_jax(t, pre):
+    """prefill_attention_bwd_ref at the card's ragged cases: T 1000 (not
+    a multiple of the kernels' 64-query and 64-key tiles), and prefixes
+    200 and 130 that end inside a key block; group 4, against
+    jax.vjp of the reference's oracle."""
+    rng = np.random.default_rng(t)
+    b, h, kv, d = (1 if pre is None else 2), 4, 1, 16
+    qn, kn, vn, don = (rng.standard_normal(shape).astype(np.float32)
+                       for shape in ((b, t, h, d), (b, t, kv, d),
+                                     (b, t, kv, d), (b, t, h, d)))
+    tp = None if pre is None else torch.tensor(pre, dtype=torch.int32)
+    o, lse = ref.prefill_attention_ref(
+        *(torch.from_numpy(a) for a in (qn, kn, vn)), tp, return_lse=True)
+    mine = ref.prefill_attention_bwd_ref(
+        *(torch.from_numpy(a) for a in (qn, kn, vn)), o, lse,
+        torch.from_numpy(don), tp)
+    jp = None if pre is None else jnp.asarray(pre, jnp.int32)
+    _, vjp = jax.vjp(lambda a, bb, c: jax_attention(a, bb, c, jp),
+                     jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    for m, j in zip(mine, vjp(jnp.asarray(don))):
+        np.testing.assert_allclose(m.numpy(), np.asarray(j), atol=1e-5)
+
+
+def test_scan_bwd_ref_ragged_interval_matches_jax():
+    """mamba_selective_scan_bwd_ref over T 1000, not a multiple of the
+    kernel's 16-step checkpoint interval, against jax.vjp of the
+    reference's oracle."""
+    rng = np.random.default_rng(1)
+    b, t, i, n = 1, 1000, 6, 16
+    dtn = np.log1p(np.exp(rng.standard_normal((b, t, i)))).astype(
+        np.float32)
+    xn = rng.standard_normal((b, t, i)).astype(np.float32)
+    bn, cn = (rng.standard_normal((b, t, n)).astype(np.float32)
+              for _ in range(2))
+    an = -np.exp(rng.standard_normal((i, n))).astype(np.float32)
+    dn = rng.standard_normal(i).astype(np.float32)
+    hn = rng.standard_normal((b, i, n)).astype(np.float32)
+    dyn = rng.standard_normal((b, t, i)).astype(np.float32)
+    dhn = rng.standard_normal((b, i, n)).astype(np.float32)
+    mine = ref.mamba_selective_scan_bwd_ref(
+        *(torch.from_numpy(a) for a in (dtn, xn, bn, cn, an, dn, hn)),
+        torch.from_numpy(dyn), torch.from_numpy(dhn))
+    _, vjp = jax.vjp(jax_scan, *(jnp.asarray(a) for a in
+                                 (dtn, xn, bn, cn, an, dn, hn)))
+    for m, j in zip(mine, vjp((jnp.asarray(dyn), jnp.asarray(dhn)))):
+        scale = max(float(np.abs(np.asarray(j)).max()), 1.0)
+        np.testing.assert_allclose(m.numpy(), np.asarray(j),
+                                   atol=1e-5 * scale)
+
+
 def test_ops_refuse_gradients_they_do_not_have():
     q = torch.randn(1, 3, 2, 8, requires_grad=True)
     k = torch.randn(1, 5, 2, 8)
