@@ -27,9 +27,10 @@ Phases (any failure exits non-zero):
      engine device rows and host-offloaded rows must be identical; and
      serving-chunked's chat traffic must give the same streams with and
      without the prefix cache, rebalancing and preemption;
-  5. serving: InferenceServer on llama3.1-8b at its published width (bf16,
-     random weights from a seed), 8 requests over 4 device + 4 host slots,
-     whole-prompt prefill, no prefix cache or tier moves;
+  5. serving: InferenceServer on llama3.1-8b at its published width, cut
+     to 16 layers (bf16, random weights from a seed), 8 requests over 4
+     device + 4 host slots, whole-prompt prefill, no prefix cache or tier
+     moves;
   6. serving-hybrid: the same traffic on Jamba-1.5-Large with dense FFNs
      at its published width, depth cut to 2 periods (16 layers);
   7. faults: the reference's fault soak on llama3.1-8b at published width
@@ -109,6 +110,19 @@ Phases (any failure exits non-zero):
      checkpoint, restore into a fresh state and a 3rd step bitwise the
      uninterrupted one; ``python -m repro_torch.launch.train --steps 30
      --ckpt-every 10`` and its ``--resume``.
+ 17. dryrun: ``python -m repro_torch.launch.dryrun`` on four cells at
+     published width and depth, on the production meshes over a fake
+     process group (llama3.1-8b decode_32k overlap on 16x16 and train_4k
+     on 2x16x16, deepseek-moe-16b decode_32k with expert-TP, Jamba
+     long_500k): no "error", ``argument_bytes`` equal to the specs' own
+     sum, collectives on the multi-pod train cell; then the memory check:
+     llama3.1-8b cut to 2 layers, one AdamW step at B 2 x T 1024 traced on
+     a (1, 1) mesh and taken on the card, ``argument_bytes`` equal to the
+     growth of ``memory_allocated`` within the allocator's 512-byte
+     rounding a tensor, ``total_per_device`` printed beside the step's
+     peak growth;
+ 18. examples: the four ``examples/torch_*.py`` on the card, each to its
+     own assertion; quickstart must launch both attention kernels.
 
 Phase 2 also holds both attention kernels at the registry's published
 head geometries (group 6, group 16, head_dim 160 and 256; the VLM's
@@ -1851,9 +1865,19 @@ def _check_served(cfg, reqs, stats, saw_nan, out_len, launches,
                  f"iterations, {buckets} admission buckets)")
 
 
+# the serving phase's depth: llama3.1-8b cut to 16 of its 32 layers (at
+# 32 the phase took ~90 s, and the dry-run and examples phases needed
+# the room; a host-tier token then takes 17 iterations, not 33)
+SERVING_LAYERS = 16
+
+
 def phase_serving() -> dict:
+    import dataclasses
     from repro_torch.configs import get_config
-    return _serve_published(get_config("llama3.1-8b"), traced_iters=40)
+    cfg = dataclasses.replace(get_config("llama3.1-8b"),
+                              num_layers=SERVING_LAYERS,
+                              name=f"llama3.1-8b-{SERVING_LAYERS}L")
+    return _serve_published(cfg, traced_iters=40)
 
 
 def phase_serving_hybrid() -> dict:
@@ -4188,19 +4212,267 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# dryrun and examples
+# ---------------------------------------------------------------------------
+
+# the dry-run's cells at published width and depth:
+# (arch, shape, multi-pod, variant)
+DRYRUN_CELLS = (("llama3.1-8b", "decode_32k", False, "overlap"),
+                ("llama3.1-8b", "train_4k", True, "baseline"),
+                ("deepseek-moe-16b", "decode_32k", False, "baseline"),
+                ("jamba-1.5-large-398b", "long_500k", False, "baseline"))
+# the memory check: llama3.1-8b cut to 2 layers at published width, one
+# train step at the train phase's B 2 x T 1024 on a (1, 1) mesh
+DRYRUN_MEMORY = dict(arch="llama3.1-8b", layers=2, rows=TRAIN["rows"],
+                     seq=TRAIN["seq"])
+ALLOC_ROUND = 512           # the caching allocator's block rounding
+
+
+def _dryrun_tag(arch, shape, multi_pod, variant) -> str:
+    return f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}__{variant}"
+
+
+def _dryrun_input_bytes(arch, shape_name, multi_pod, variant) -> int:
+    """Rank 0's bytes of a cell's inputs, summed over the specs alone
+    (``param_shardings`` / ``fitted_param_specs`` and the input specs of
+    ``launch.shapes``), apart from the trace that the record's
+    ``argument_bytes`` comes from."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, mesh, shapes
+    from repro_torch.models import abstract_params
+    cfg, shape = get_config(arch), shapes.SHAPES[shape_name]
+    m = mesh.make_production_mesh(multi_pod=multi_pod)
+    try:
+        params = abstract_params(cfg)
+        if shape.kind == "train":
+            (state, batch), (sspecs, bspecs) = dryrun.train_inputs(
+                cfg, shape, m, params)
+            return dryrun.spec_bytes(m, state, sspecs) + \
+                dryrun.spec_bytes(m, batch, bspecs)
+        rules = dryrun.cell_rules(m, shape.kind, {})
+        total = dryrun.spec_bytes(m, params, sharding.fitted_param_specs(
+            m, params, rules))
+        dev, host = dryrun.decode_batches(shape, variant)
+        st = shapes.abstract_state(cfg, device_batch=dev, host_batch=host,
+                                   cache_len=shape.seq_len)
+        total += dryrun.spec_bytes(m, st, shapes.state_specs(
+            cfg, st, m, long_context=shape_name == "long_500k"))
+        tok, tspec = shapes.decode_token_specs(cfg, dev, m)
+        total += dryrun.spec_bytes(m, [tok], [tspec])
+        if host:
+            hio, hspec = shapes.host_io_specs(cfg, host, m)
+            total += dryrun.spec_bytes(m, hio, hspec)
+        return total
+    finally:
+        mesh.destroy()
+
+
+def _check_dryrun_cell(cell, out_dir: Path, rc: int, err: str) -> None:
+    """One cell's record: no "error", ``argument_bytes`` equal to the
+    phase's own sum over the specs, collectives on the multi-pod train
+    cell; its line printed."""
+    tag = _dryrun_tag(*cell)
+    if rc != 0:
+        log(err[-3000:])
+        fail(f"dryrun {tag}: exit {rc}")
+    rec = json.loads((out_dir / f"{tag}.json").read_text())
+    if "error" in rec:
+        log(rec.get("traceback", "")[-3000:])
+        fail(f"dryrun {tag}: {rec['error']}")
+    mem, coll = rec["memory"], rec["collectives"]
+    want = _dryrun_input_bytes(*cell)
+    if mem["argument_bytes"] != want:
+        fail(f"dryrun {tag}: argument_bytes {mem['argument_bytes']}, "
+             f"the specs sum to {want}")
+    if cell[1] == "train_4k" and cell[2] and coll["total_bytes"] <= 0:
+        fail(f"dryrun {tag}: no collectives on the multi-pod train cell")
+    by_kind = ", ".join(f"{k} {v / 1e6:.1f}" for k, v in
+                        sorted(coll["bytes_by_kind"].items()))
+    log(f"  {tag}: {mem['total_per_device'] / 1e9:.3f} GB per rank "
+        f"(arguments {mem['argument_bytes'] / 1e9:.3f} = the specs' "
+        f"sum, temp {mem['temp_bytes'] / 1e9:.3f}, out "
+        f"{mem['output_bytes'] / 1e9:.3f}, aliased "
+        f"{mem['alias_bytes'] / 1e9:.3f}); collectives MB: "
+        f"{by_kind or 'none'}; flops per rank "
+        f"{rec['cost_analysis']['flops']:.4g}; trace_s {rec['trace_s']}")
+
+
+def _dryrun_memory_check() -> dict:
+    """The train step's trace on a (1, 1) mesh against the card: the
+    same params, train state and batch materialised there must grow
+    ``memory_allocated`` by the record's ``argument_bytes`` (within the
+    allocator's rounding, per tensor); one real step's peak growth is
+    printed beside the record's ``total_per_device``.  Returns the
+    step's launches."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import dryrun, mesh, shapes
+    from repro_torch.models import init_params
+    from repro_torch.training import init_train_state, make_train_step
+    mc = DRYRUN_MEMORY
+    cfg = dataclasses.replace(get_config(mc["arch"]),
+                              num_layers=mc["layers"])
+    spec = shapes.ShapeSpec(f"train_{mc['rows']}x{mc['seq']}", "train",
+                            mc["seq"], mc["rows"])
+    try:
+        rec = dryrun.dryrun_cell(mc["arch"], spec.name, cfg=cfg, shape=spec,
+                                 mesh=mesh.make_local_mesh())
+    finally:
+        mesh.destroy()
+    mem = rec["memory"]
+    _free_device()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    _, tcfg, opt = dryrun.train_setup(cfg)
+    state = init_train_state(cfg, tcfg, opt,
+                             init_params(cfg, seed=0, device="cuda"))
+    toks = _batch(cfg, mc["rows"], mc["seq"])["tokens"]
+    batch = {"tokens": toks, "labels": toks.clone()}    # two inputs
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    n_tensors = sum(1 for x in tree_leaves((state, batch))
+                    if isinstance(x, torch.Tensor) and x.is_cuda)
+    arg = mem["argument_bytes"]
+    log(f"  memory check ({mc['arch']} cut to {mc['layers']} layers, "
+        f"{spec.name}, {rec['optimizer']}): argument_bytes {arg} vs "
+        f"memory_allocated growth {grown} over {n_tensors} tensors "
+        f"(difference {grown - arg}) [{CARD}]")
+    if abs(grown - arg) > ALLOC_ROUND * n_tensors:
+        fail(f"memory check: argument_bytes {arg} against a growth of "
+             f"{grown} bytes for {n_tensors} tensors")
+    wrappers = _kernel_wrappers()
+    step = make_train_step(cfg, tcfg, opt)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    state, metrics = step(state, batch, None)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() - before
+    total = mem["total_per_device"]
+    loss = float(metrics["loss"])
+    log(f"  one step: loss {loss:.4f}, peak growth {peak} bytes beside "
+        f"the record's total_per_device {total} (temp {mem['temp_bytes']}, "
+        f"out {mem['output_bytes']}, aliased {mem['alias_bytes']}): "
+        f"total_per_device / (arguments + peak growth) "
+        f"{total / (arg + peak):.4f}; launches {launches} [{CARD}]")
+    if not math.isfinite(loss):
+        fail(f"memory check: loss {loss}")
+    for name in ("prefill_attention", "prefill_attention_bwd"):
+        if launches[name] < mc["layers"]:
+            fail(f"memory check: {name} launched {launches[name]} times")
+    del state, batch
+    _free_device()
+    return launches
+
+
+EXAMPLES = ("quickstart", "offload_demo", "serve_chat", "train_tiny")
+
+
+def phase_dryrun_examples(dryrun: bool, examples: bool) -> dict:
+    """The dry-run's four cells (``python -m repro_torch.launch.dryrun``
+    each, on the host's CPU), its memory check on the card (this script
+    with ``--memory-check``: a process of its own, so nothing else
+    allocates on the card while it measures) and the four examples
+    (``examples/torch_*.py`` with their defaults; tiny models), all as
+    processes side by side; then each checked.  Returns the launches of
+    each path: the memory check's step, and what quickstart and
+    train_tiny print."""
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds = {}
+    if dryrun:
+        for cell in DRYRUN_CELLS:
+            arch, shape, mp, variant = cell
+            cmds[cell] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                          "--arch", arch, "--shape", shape, "--variant",
+                          variant, "--out", str(out_dir)] + (
+                              ["--multi-pod"] if mp else [])
+        cmds["memory"] = [sys.executable, str(Path(__file__).resolve()),
+                          "--memory-check"]
+    if examples:
+        for name in EXAMPLES:
+            cmds[name] = [sys.executable,
+                          str(ROOT / "examples" / f"torch_{name}.py")]
+    procs = {key: subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for key, cmd in cmds.items()}
+    outs = {}
+    try:
+        for key, proc in procs.items():
+            outs[key] = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    log(f"  {len(procs)} processes in {time.perf_counter() - t0:.1f} s")
+    result = {}
+    if dryrun:
+        for cell in DRYRUN_CELLS:
+            _check_dryrun_cell(cell, out_dir, procs[cell].returncode,
+                               outs[cell][1])
+        out, err = outs["memory"]
+        for line in out.strip().splitlines():
+            if not line.startswith("MEMCHECK "):
+                log(line)
+        if procs["memory"].returncode != 0:
+            log(err[-3000:])
+            fail(f"memory check exited {procs['memory'].returncode}")
+        result["dryrun"] = json.loads(next(
+            ln for ln in out.splitlines()
+            if ln.startswith("MEMCHECK "))[len("MEMCHECK "):])
+    if examples:
+        launches = {name: 0 for name in _kernel_wrappers()}
+        for name in EXAMPLES:
+            out, err = outs[name]
+            for line in out.strip().splitlines()[-4:]:
+                log(f"  {name} | {line}")
+            if procs[name].returncode != 0:
+                log(err[-3000:])
+                fail(f"examples/torch_{name}.py exited "
+                     f"{procs[name].returncode}")
+            for line in out.splitlines():
+                if line.startswith("kernel launches:"):
+                    for k, v in json.loads(line.split(":", 1)[1]).items():
+                        launches[k] += v
+        if "all agree" not in outs["quickstart"][0]:
+            fail("torch_quickstart.py did not print its agreement")
+        for name in ("decode_attention", "prefill_attention"):
+            if launches[name] <= 0:
+                fail(f"examples: {name} launched {launches[name]} times")
+        log(f"  examples' launches {launches} [{CARD}]")
+        result["examples"] = launches
+    log(f"  dryrun / examples phase in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 
 PHASES = ("env", "kernels", "profile", "exactness", "serving",
           "serving-hybrid", "faults", "serving-chunked", "serving-moe",
           "serving-registry", "serving-xlstm", "vlm", "encoder", "cli",
-          "gateway", "train")
+          "gateway", "train", "dryrun", "examples")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma list out of {PHASES}")
+    ap.add_argument("--memory-check", action="store_true",
+                    help="only the dryrun phase's memory check (the phase "
+                    "runs it so, in a process of its own)")
     args = ap.parse_args()
     phases = args.phases.split(",")
     import torch
@@ -4216,6 +4488,14 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.memory_check:
+        global CARD
+        CARD = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+        print("MEMCHECK " + json.dumps(_dryrun_memory_check()), flush=True)
+        return 0
     log("== environment")
     env = phase_env()
     records = {}
@@ -4232,7 +4512,8 @@ def main() -> int:
         log("== exactness at a reduced size")
         phase_exactness()
     if "serving" in phases:
-        log("== serving llama3.1-8b at published width")
+        log(f"== serving llama3.1-8b at published width ({SERVING_LAYERS} "
+            "layers)")
         launches["serving"] = phase_serving()
     if "serving-hybrid" in phases:
         log("== serving Jamba-1.5-Large (dense FFN, 16 layers) at published "
@@ -4277,6 +4558,12 @@ def main() -> int:
         log("== training: llama3.1-8b and the dense-FFN Jamba period at "
             "published width, gradients, checkpoint and resume, the CLI")
         launches["train"] = phase_train()
+    if "dryrun" in phases or "examples" in phases:
+        log("== the dry-run (four cells on the production meshes over a "
+            "fake process group, the memory check on the card) and the "
+            "four examples, side by side")
+        launches.update(phase_dryrun_examples("dryrun" in phases,
+                                              "examples" in phases))
     log(f"== every phase in {time.perf_counter() - t_run:.1f} s")
     if records and launches:
         for name, rec in records.items():

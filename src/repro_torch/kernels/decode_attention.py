@@ -19,6 +19,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launches import counted
 
 TILE = 32                            # positions per staged K/V tile
 # decode CTAs resident on one SM at D 128 in bf16 (128 threads, ~52 KB of
@@ -146,6 +147,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
 
 
+@counted
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor) -> torch.Tensor:
     """q (B,H,D), k/v (B,S,KV,D), lengths (B,) int32 in [1, S] ->
@@ -177,8 +179,5 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {rc}")
-    decode_attention_cuda.launches += 1
+    decode_attention_cuda.add_launch()
     return out
-
-
-decode_attention_cuda.launches = 0

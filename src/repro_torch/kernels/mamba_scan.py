@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.launches import counted
 
 STATE_DIMS = (8, 16)                 # N: reduced configs and Jamba
 IN_DTYPES = (torch.float32, torch.bfloat16)
@@ -119,6 +120,7 @@ def _check(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                              "(the state moves as 16-byte vectors)")
 
 
+@counted
 def mamba_selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor,
                               b: torch.Tensor, c: torch.Tensor,
                               a_neg: torch.Tensor, d_skip: torch.Tensor,
@@ -145,11 +147,8 @@ def mamba_selective_scan_cuda(dt: torch.Tensor, x: torch.Tensor,
         int(dt.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"mamba_scan kernel launch failed: cudaError {rc}")
-    mamba_selective_scan_cuda.launches += 1
+    mamba_selective_scan_cuda.add_launch()
     return y, h_final
-
-
-mamba_selective_scan_cuda.launches = 0
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -165,6 +164,7 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@counted
 def mamba_selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
                                   b: torch.Tensor, c: torch.Tensor,
                                   a_neg: torch.Tensor, d_skip: torch.Tensor,
@@ -217,11 +217,21 @@ def mamba_selective_scan_bwd_cuda(dt: torch.Tensor, x: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed: "
                            f"cudaError {rc}")
-    mamba_selective_scan_bwd_cuda.launches += 1
+    mamba_selective_scan_bwd_cuda.add_launch()
     return ddt, dx, db, dc, da, dd, dh0
 
 
-mamba_selective_scan_bwd_cuda.launches = 0
+def meta_scan(dt: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+              h_out: Optional[torch.Tensor] = None, backward: bool = False):
+    """The outputs' shapes for a meta call, noted for
+    ``ops.record_meta_calls``: (y (B,T,I) fp32, h_final) -- ``h_out``
+    itself when given, as the kernel writes there."""
+    from repro_torch.kernels.ops import local_shape, meta_call
+    meta_call("mamba_selective_scan_bwd" if backward
+              else "mamba_selective_scan", dt=local_shape(dt),
+              b=local_shape(b), dtype=dt.dtype)
+    y = torch.empty_like(dt, dtype=torch.float32)
+    return y, (torch.empty_like(h0) if h_out is None else h_out)
 
 
 class MambaScanFn(torch.autograd.Function):
@@ -233,6 +243,9 @@ class MambaScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dt, x, b, c, a_neg, d_skip, h0):
         ctx.set_materialize_grads(False)
+        if dt.device.type == "meta":     # shapes only (``kernels.ops``)
+            ctx.save_for_backward(dt, x, b, c, a_neg, d_skip, h0)
+            return meta_scan(dt, b, h0)
         if dt.device.type == "cpu":
             y, h = ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip,
                                                 h0)
@@ -244,6 +257,9 @@ class MambaScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_final):
         args = ctx.saved_tensors
+        if args[0].device.type == "meta":
+            meta_scan(args[0], args[2], args[6], backward=True)
+            return tuple(torch.empty_like(a) for a in args)
         if dy is None:
             dy = torch.zeros(args[0].shape, dtype=torch.float32,
                              device=args[0].device)

@@ -9,10 +9,18 @@ one) goes through the kernel's ``torch.autograd.Function``, whose
 backward is the backward kernel on the card and the plain backward on
 the CPU.  Training passes neither ``q_offset`` nor ``lens`` nor
 ``h_out``; such a call is refused.
+
+A tensor on the ``meta`` device (a DTensor whose local tensor is on
+``meta`` included: the dry-run's) gets outputs of the kernel's shapes
+and dtypes and nothing computed, forward and backward; ``empty_like``
+carries DTensor placements through.  No aten op stands for a kernel, so
+a dry-run counts the kernels' work from the calls ``record_meta_calls``
+collects.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -26,9 +34,40 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+_META_CALLS: List[List[Tuple[str, Dict[str, object]]]] = []
+
+
+@contextlib.contextmanager
+def record_meta_calls() -> Iterator[List[Tuple[str, Dict[str, object]]]]:
+    """Collect (kernel name, local shapes) of every meta-rule call made
+    inside the block, the backward rules' included."""
+    calls: List[Tuple[str, Dict[str, object]]] = []
+    _META_CALLS.append(calls)
+    try:
+        yield calls
+    finally:
+        _META_CALLS.remove(calls)
+
+
+def meta_call(name: str, **shapes: object) -> None:
+    """Note one kernel call that a meta rule stood for."""
+    for calls in _META_CALLS:
+        calls.append((name, shapes))
+
+
+def local_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of this rank's part of ``t`` (its local shard if it is a
+    DTensor): what the kernel would run on."""
+    return tuple(t.to_local().shape if hasattr(t, "to_local") else t.shape)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """(B,H,D) x (B,S,KV,D) -> (B,H,D) over the first lengths[b] positions."""
+    if q.device.type == "meta":
+        meta_call("decode_attention", q=local_shape(q), k=local_shape(k),
+                  dtype=k.dtype)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k, v, lengths)
     return _dec.decode_attention_cuda(q, k, v, lengths)
@@ -45,6 +84,9 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("prefill_attention has no gradient through "
                              "q_offset (no training path takes one)")
         return _pre.PrefillAttentionFn.apply(q, k, v, prefix_len, causal)
+    if q.device.type == "meta":
+        _pre.meta_prefill(q, k, causal, q_offset is not None)
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return _ref.prefill_attention_ref(q, k, v, prefix_len, q_offset,
                                           causal=causal)
@@ -66,6 +108,8 @@ def mamba_selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
             raise ValueError("mamba_selective_scan has no gradient with "
                              "lens or h_out (no training path takes them)")
         return _scan.MambaScanFn.apply(dt, x, b, c, a_neg, d_skip, h0)
+    if dt.device.type == "meta":
+        return _scan.meta_scan(dt, b, h0, h_out)
     if dt.device.type == "cpu":
         _scan.check_h_out(h0, h_out)
         y, h = _ref.mamba_selective_scan_ref(dt, x, b, c, a_neg, d_skip, h0,

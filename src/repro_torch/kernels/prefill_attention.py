@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.launches import counted
 
 HEAD_DIMS = (32, 64, 80, 128, 160, 256)
 GROUPS = (1, 2, 4, 6, 8, 16)         # query heads per kv head
@@ -111,6 +112,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@counted
 def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            prefix_len: Optional[torch.Tensor] = None,
                            q_offset: Optional[torch.Tensor] = None, *,
@@ -136,13 +138,11 @@ def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"prefill_attention kernel launch failed: "
                            f"cudaError {rc}")
-    prefill_attention_cuda.launches += 1
+    prefill_attention_cuda.add_launch()
     return (out, lse) if return_lse else out
 
 
-prefill_attention_cuda.launches = 0
-
-
+@counted
 def prefill_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, out: torch.Tensor,
                                lse: torch.Tensor, dout: torch.Tensor,
@@ -182,11 +182,9 @@ def prefill_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"prefill_attention_bwd kernel launch failed: "
                            f"cudaError {rc}")
-    prefill_attention_bwd_cuda.launches += 1
+    prefill_attention_bwd_cuda.add_launch()
     return dq, dk, dv
 
-
-prefill_attention_bwd_cuda.launches = 0
 
 _BWD_ROUTES = {0: "fma", 1: "mma.sync", 2: "wgmma"}
 
@@ -204,6 +202,15 @@ def prefill_attention_bwd_route(d: int, dtype: torch.dtype) -> str:
     return _BWD_ROUTES[route]
 
 
+def meta_prefill(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                 offset: bool, backward: bool = False) -> None:
+    """Note a call that a meta rule stands for (``ops.record_meta_calls``)."""
+    from repro_torch.kernels.ops import local_shape, meta_call
+    meta_call("prefill_attention_bwd" if backward else "prefill_attention",
+              q=local_shape(q), k=local_shape(k), dtype=q.dtype,
+              causal=causal, offset=offset)
+
+
 class PrefillAttentionFn(torch.autograd.Function):
     """Differentiable prefill attention over a span of its own (queries at
     positions 0..T-1): the kernel and its backward kernel on the card,
@@ -212,6 +219,11 @@ class PrefillAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, prefix_len, causal):
+        if q.device.type == "meta":      # shapes only (``kernels.ops``)
+            meta_prefill(q, k, causal, False)
+            ctx.save_for_backward(q, k, v)
+            ctx.causal = causal
+            return torch.empty_like(q)
         if q.device.type == "cpu":
             out, lse = ref.prefill_attention_ref(q, k, v, prefix_len,
                                                  causal=causal,
@@ -225,6 +237,11 @@ class PrefillAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        if dout.device.type == "meta":
+            q, k, v = ctx.saved_tensors
+            meta_prefill(q, k, ctx.causal, False, backward=True)
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None, None)
         q, k, v, out, lse, prefix_len = ctx.saved_tensors
         dout = dout.contiguous()
         if q.device.type == "cpu":

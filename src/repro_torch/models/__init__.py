@@ -1,7 +1,8 @@
 """Model of the port: config, layers, KV and recurrent state, the block
 stack."""
 from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
-from repro_torch.models.model import (ModelParams, decode_step,
+from repro_torch.models.model import (ModelParams, abstract_params,
+                                      decode_step,
                                       decode_with_chunked_prefill,
                                       forward_hidden, forward_train,
                                       init_decode_state, init_params,
@@ -10,7 +11,8 @@ from repro_torch.models.model import (ModelParams, decode_step,
 from repro_torch.models.transformer import HostIO, QKVOut
 
 __all__ = [
-    "BlockKind", "FFNKind", "ModelConfig", "ModelParams", "decode_step",
+    "BlockKind", "FFNKind", "ModelConfig", "ModelParams", "abstract_params",
+    "decode_step",
     "decode_with_chunked_prefill", "forward_hidden", "forward_train",
     "init_decode_state", "init_params", "params_from_numpy", "prefill",
     "prefill_bucketed", "prefill_chunk", "HostIO", "QKVOut",

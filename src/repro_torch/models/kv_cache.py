@@ -55,6 +55,37 @@ class StackState:
     lengths: torch.Tensor
 
 
+def write_rows(cache: torch.Tensor, cols: torch.Tensor,
+               val: torch.Tensor) -> None:
+    """``cache[b, cols[b, i]] = val[b, i]`` for every row b, in place, on a
+    DTensor cache (B, S, ...): each rank writes the positions that fall
+    in its own shard, from ``val`` and ``cols`` (B, T) brought to the
+    cache's batch and channel sharding (the reference's scatter into a
+    donated sharded cache, which XLA partitions the same way).  A plain
+    cache is written with one index assignment by its caller."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.distributed.sharding import as_dtensor
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    seq_sharded = any(isinstance(p, Shard) and p.dim == 1 for p in pl)
+    val_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                   for p in pl)
+    col_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in pl)
+    val = as_dtensor(val, mesh).redistribute(mesh, val_pl).to_local()
+    cols = as_dtensor(cols, mesh).redistribute(mesh, col_pl).to_local()
+    local = cache.to_local()
+    rows = torch.arange(local.shape[0], device=local.device)[:, None]
+    if not seq_sharded:
+        local[rows, cols.long()] = val
+        return
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    lc = cols.long() - offset[1]
+    inside = (lc >= 0) & (lc < local.shape[1])
+    lc = lc.clamp(0, local.shape[1] - 1)
+    keep = inside.reshape(inside.shape + (1,) * (val.dim() - 2))
+    local[rows, lc] = torch.where(keep, val, local[rows, lc])
 
 
 class PagedKVPool:

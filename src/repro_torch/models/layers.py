@@ -14,6 +14,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (is_dtensor, lookup_rows,
+                                              split_last)
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -25,7 +28,10 @@ Params = Dict[str, torch.Tensor]
 
 def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """Fill ``w`` (..., in_dim, out_dim) in place: truncated normal
-    (+-3 std) with fan-in std 1/sqrt(in_dim), drawn in fp32."""
+    (+-3 std) with fan-in std 1/sqrt(in_dim), drawn in fp32.  A ``meta``
+    tensor has no values to fill and is returned as it is."""
+    if w.is_meta:
+        return w
     std = 1.0 / math.sqrt(w.shape[-2])
     for mat in w.reshape(-1, *w.shape[-2:]):
         tmp = torch.empty(mat.shape, dtype=torch.float32, device=w.device)
@@ -35,6 +41,8 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 
 
 def embed_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    if w.is_meta:
+        return w
     for i in range(0, w.shape[0], 16384):       # bounded fp32 scratch
         rows = w[i:i + 16384]
         tmp = torch.randn(rows.shape, dtype=torch.float32, device=w.device,
@@ -92,10 +100,9 @@ def qkv_project(params: Params, x: torch.Tensor, num_heads: int,
                 inv_freq: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-attention linear ops (the paper's "pr" stage).  x: (B, T, d)."""
-    b, t, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, t, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(b, t, num_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(b, t, num_kv_heads, head_dim)
+    q = split_last(x @ params["wq"], num_heads, head_dim)
+    k = split_last(x @ params["wk"], num_kv_heads, head_dim)
+    v = split_last(x @ params["wv"], num_kv_heads, head_dim)
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions,
                                                            inv_freq), v
 
@@ -123,6 +130,8 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(params["embed"]):
+        return lookup_rows(params["embed"], tokens)
     return params["embed"][tokens]
 
 

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kv_cache import StackState
@@ -40,9 +41,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: torch.device | str) -> ModelParams:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
     (the reference's ``jax.random`` weights cannot be regenerated in
-    torch; ``params_from_numpy`` carries those across)."""
+    torch; ``params_from_numpy`` carries those across).  On the ``meta``
+    device there is nothing to draw: see ``abstract_params``."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
     d = cfg.d_model
     embedding = {"embed": embed_init_(
@@ -54,6 +57,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         embedding=embedding,
         blocks=transformer.stack_init(cfg, gen, device),
         final_norm={"scale": torch.ones((d,), dtype=dt, device=device)})
+
+
+def abstract_params(cfg: ModelConfig) -> ModelParams:
+    """The tree of ``init_params`` on the ``meta`` device: the same leaves,
+    shapes and dtypes, nothing allocated (the dry-run's parameters)."""
+    return init_params(cfg, device="meta")
 
 
 def _leaf_to_torch(a: Any, device: torch.device) -> torch.Tensor:
@@ -166,7 +175,8 @@ def forward_train(params: ModelParams, cfg: ModelConfig,
     loss).  The encoder's (``causal=False``) path; on the VLM, T counts
     the patches too."""
     x, aux = forward_hidden(params, cfg, inputs, rng=rng, remat=remat)
-    return unembed(params.embedding, x), aux
+    return constrain(unembed(params.embedding, x), "batch", "seq",
+                     "vocab"), aux
 
 
 def prefill(params: ModelParams, cfg: ModelConfig,
@@ -293,4 +303,5 @@ def decode_step(params: ModelParams, cfg: ModelConfig,
                                host.positions.to(state.lengths.dtype)])
     x, new_state, qkv_out = transformer.decode_step(
         params.blocks, cfg, x, positions, state, host)
-    return _logits(params, cfg, x), new_state, qkv_out, x
+    logits = constrain(_logits(params, cfg, x), "batch", "vocab")
+    return logits, new_state, qkv_out, x

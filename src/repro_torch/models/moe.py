@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import Params, dense_init_, mlp
 
@@ -165,6 +166,9 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig, *,
     tokens = x.reshape(n, d)
     cap = expert_capacity(n, cfg, capacity_factor)
     probs, top_probs, top_ids = _route(params, tokens, cfg, generator)
+    if is_dtensor(x):
+        return _moe_ffn_capacity_sharded(params, x, cfg, cap, tokens, probs,
+                                         top_probs, top_ids)
 
     flat_ids = top_ids.reshape(-1)
     flat_pos, keep = capacity_slots(flat_ids, cap)
@@ -176,11 +180,13 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig, *,
                           torch.zeros((), dtype=x.dtype, device=x.device))
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
     buf.index_put_((flat_ids, safe_pos), contrib, accumulate=True)
+    buf = constrain(buf, "experts", None, None)
 
     # experts: batched SwiGLU over the experts dim
     gate = F.silu(torch.bmm(buf, params["we_gate"]).float()).to(x.dtype)
     up = torch.bmm(buf, params["we_up"])
     out_buf = torch.bmm(gate * up, params["we_down"])
+    out_buf = constrain(out_buf, "experts", None, None)
 
     # combine: fp32 probability-weighted sum over each token's k experts
     gathered = out_buf[flat_ids, safe_pos]                     # (n*k, d)
@@ -190,6 +196,73 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig, *,
     combined, aux = _shared_and_aux(params, cfg, tokens, combined, probs,
                                     top_ids)
     return combined.reshape(b, t, d), aux
+
+
+def _moe_ffn_capacity_sharded(params: Params, x, cfg: MoEConfig, cap: int,
+                              tokens, probs, top_probs, top_ids):
+    """The capacity path on DTensors (the dry-run's): the same dispatch,
+    experts and combine.  Capacity is assigned over every token of the
+    call in token order, as on one device, so the routing ids, the
+    tokens and the expert outputs are gathered to every rank and the
+    index arithmetic (sort, searchsorted, scatter-add, gather; ops
+    DTensor does not shard) runs on plain local tensors; the expert
+    products run on the expert-sharded buffer against the sharded
+    weights."""
+    from torch.distributed.tensor import DTensor, Replicate
+    b, t, d = x.shape
+    n, k, e = b * t, cfg.top_k, cfg.num_experts
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def gathered(a):
+        return a.redistribute(mesh, rep).to_local()
+
+    flat_ids = gathered(top_ids).reshape(-1)
+    flat_pos, keep = capacity_slots(flat_ids, cap)
+    COUNTS.add_dropped((~keep).sum())
+    safe_pos = torch.where(keep, flat_pos, 0)
+    tok = gathered(tokens)
+    contrib = torch.where(keep[:, None], tok.repeat_interleave(k, 0),
+                          torch.zeros((), dtype=x.dtype, device=tok.device))
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=tok.device)
+    buf.index_put_((flat_ids, safe_pos), contrib, accumulate=True)
+    buf = constrain(DTensor.from_local(buf, mesh, rep, run_check=False),
+                    "experts", None, None)
+    gate = F.silu(torch.bmm(buf, params["we_gate"]).float()).to(x.dtype)
+    up = torch.bmm(buf, params["we_up"])
+    out_buf = torch.bmm(gate * up, params["we_down"])
+    out_buf = constrain(out_buf, "experts", None, None)
+    picked = gathered(out_buf)[flat_ids, safe_pos]             # (n*k, d)
+    weights = (gathered(top_probs).reshape(-1) * keep).float()
+    combined = (picked.float() * weights[:, None]).reshape(n, k, d) \
+        .sum(1).to(x.dtype)
+    combined = DTensor.from_local(combined, mesh, rep, run_check=False
+                                  ).redistribute(mesh, [
+                                      Replicate() if p.is_partial() else p
+                                      for p in tokens.placements])
+    combined, aux = _shared_and_aux(params, cfg, tokens, combined, probs,
+                                    top_ids)
+    return combined.reshape(b, t, d), aux
+
+
+def _pick_sharded(out, top_ids):
+    """``out[top_ids, token]`` (n, k, d) of DTensors out (E, n, d) and
+    top_ids (n, k): each rank picks from its own tokens, with the expert
+    and model dims of ``out`` gathered (DTensor's index op does not take
+    ids split over two mesh dims, as (pod, data) splits the tokens)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = out.device_mesh
+    ids_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in top_ids.placements]
+    local_out = out.redistribute(mesh, [
+        Shard(1) if isinstance(p, Shard) else Replicate()
+        for p in ids_pl]).to_local()
+    ids = top_ids.redistribute(mesh, ids_pl).to_local()
+    picked = local_out[ids, torch.arange(ids.shape[0],
+                                         device=ids.device)[:, None]]
+    (n, k), d = top_ids.shape, out.shape[-1]
+    return DTensor.from_local(picked, mesh, ids_pl, run_check=False,
+                              shape=(n, k, d), stride=(k * d, d, 1))
 
 
 def _moe_ffn_gather(params: Params, x: torch.Tensor, cfg: MoEConfig
@@ -208,7 +281,10 @@ def _moe_ffn_gather(params: Params, x: torch.Tensor, cfg: MoEConfig
     gate = F.silu(torch.bmm(xs, params["we_gate"]).float()).to(x.dtype)
     out = torch.bmm(gate * torch.bmm(xs, params["we_up"]),
                     params["we_down"])                          # (E, n, d)
-    out_k = out[top_ids, torch.arange(n, device=x.device)[:, None]]
+    if is_dtensor(out):
+        out_k = _pick_sharded(out, top_ids)
+    else:
+        out_k = out[top_ids, torch.arange(n, device=x.device)[:, None]]
     combined = (out_k.float() * top_probs[..., None]).sum(1).to(x.dtype)
     combined, aux = _shared_and_aux(params, cfg, tokens, combined, probs,
                                     top_ids)

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, split_last
 from repro_torch.kernels import ops
 from repro_torch.models.config import MambaConfig
 from repro_torch.models.layers import Params, dense_init_
@@ -141,7 +142,10 @@ def mamba_forward(params: Params, cfg: MambaConfig, x: torch.Tensor,
         xc = xc + window[:, k:k + t].float() * conv_w[:, k]
     xc = F.silu(xc + params["conv_b"].float()).to(x.dtype)
 
-    dt_r, bmat, cmat = (xc @ params["x_proj"]).split([dtr, n, n], dim=-1)
+    # x_proj contracts the inner dim: under a mesh its partial sums are
+    # completed here, before the dt projection and the scan take them
+    proj = constrain(xc @ params["x_proj"], "batch", "seq", None)
+    dt_r, bmat, cmat = proj.split([dtr, n, n], dim=-1)
     # jax.nn.softplus is logaddexp(v, 0)
     v = (dt_r @ params["dt_proj"]).float() + params["dt_bias"]
     dt = torch.logaddexp(v, torch.zeros((), device=v.device))
@@ -314,7 +318,7 @@ def slstm_forward(params: Params, x: torch.Tensor, state: SLSTMState,
     hs = []
     for i in range(t):
         rec = torch.einsum("bhd,hde->bhe", h, r)
-        gx = gates_all[:, i].reshape(b, num_heads, 4 * hd) + rec + bias
+        gx = split_last(gates_all[:, i], num_heads, 4 * hd) + rec + bias
         i_t, f_t, z_t, o_t = gx.chunk(4, dim=-1)
         m_new = torch.maximum(f_t + m, i_t)
         i_g = torch.exp(i_t - m_new)
@@ -368,9 +372,9 @@ def mlstm_forward(params: Params, x: torch.Tensor, state: MLSTMState,
     lens = None if valid_lens is None else valid_lens.to(x.device)
     xc, new_conv = _mlstm_conv(params, xin, state.conv, lens)
     q, k, v = (xc @ params["w_qkv"]).chunk(3, dim=-1)
-    q = q.reshape(b, t, num_heads, hd).float()
-    k = (k.reshape(b, t, num_heads, hd) / math.sqrt(hd)).float()
-    v = v.reshape(b, t, num_heads, hd).float()
+    q = split_last(q, num_heads, hd).float()
+    k = (split_last(k, num_heads, hd) / math.sqrt(hd)).float()
+    v = split_last(v, num_heads, hd).float()
     i_pre, f_pre = (xc.float() @ params["w_gates"]).chunk(2, dim=-1)
     f_pre = F.logsigmoid(f_pre)             # log-sigmoid forget gate
     cmat, n, m = state.cmat, state.n, state.m

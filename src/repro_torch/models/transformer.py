@@ -39,6 +39,10 @@ each pattern group in the backward
 per layer (the reference's ``fold_in(rng, layer)``), so the recompute
 draws the same noise.
 
+The reference's sharding constraints (``distributed.sharding.constrain``)
+sit at its sites: a no-op unless a mesh is active and the tensor is a
+DTensor (the dry-run).
+
 An entry's FFN is an MoE (``models.moe``) where
 ``cfg.ffn_kind_for_entry(j)`` says so at init (every ``moe_period``-th
 entry), and wherever a ``router`` leaf is present at apply time, in every
@@ -54,10 +58,11 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.models import moe, ssm
 from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
-from repro_torch.models.kv_cache import AttnKV, StackState
+from repro_torch.models.kv_cache import AttnKV, StackState, write_rows
 from repro_torch.models.layers import (Params, attention_output, dense_init_,
                                        mlp, qkv_project, rmsnorm,
                                        rope_frequencies)
@@ -185,6 +190,16 @@ def layer_params(blocks: Tuple[Params, ...], j: int, g: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream (B, T, d) after a mixer's or an FFN's add, held
+    batch-sharded and replicated over "model" under a mesh (a partial sum
+    is all-reduced there, Megatron's row-parallel form).  Sites the
+    reference does not have: left free, DTensor may shard T over "model"
+    and later flatten (B, T) into a strided shard, whose redistribution
+    plans take seconds each on the (2, 16, 16) mesh."""
+    return constrain(x, "batch", "seq", None)
+
+
 def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
          aux: Optional[List[torch.Tensor]] = None,
          generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -199,8 +214,8 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out, loss = moe.moe_ffn(p["ffn"], h2, cfg.moe, generator=generator)
         if aux is not None:
             aux.append(loss)
-        return x + out
-    return x + mlp(p["ffn"], h2)
+        return _residual(x + out)
+    return _residual(x + mlp(p["ffn"], h2))
 
 
 def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -217,10 +232,13 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim, positions, inv_freq)
+    q = constrain(q, "batch", None, "heads", None)
     if kc is None:
         attn = ops.prefill_attention(q, k, v, prefix_len,
                                      causal=cfg.causal)
-        return _ffn(p, cfg, x + attention_output(p["attn"], attn), aux,
+        attn = constrain(attn, "batch", None, "heads", None)
+        return _ffn(p, cfg, _residual(x + attention_output(p["attn"], attn)),
+                    aux,
                     generator)
     b, t = x.shape[:2]
     rows = torch.arange(b, device=x.device)[:, None]
@@ -229,8 +247,12 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # reference's scatter drops out-of-range writes instead)
     cols = positions.long().clamp(max=kc.shape[1] - 1)
     # in place: the reference's .at[rows, cols].set on a donated cache
-    kc[rows, cols] = k.to(kc.dtype)
-    vc[rows, cols] = v.to(vc.dtype)
+    if is_dtensor(kc):
+        write_rows(kc, cols, k.to(kc.dtype))
+        write_rows(vc, cols, v.to(vc.dtype))
+    else:
+        kc[rows, cols] = k.to(kc.dtype)
+        vc[rows, cols] = v.to(vc.dtype)
     if not cfg.causal:
         # full attention over the written positions: the causal mask OR
         # a prefix reaching the span's end is exactly k < lengths + T
@@ -238,7 +260,9 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     # causality on absolute positions (k <= lengths + i) also hides every
     # cache column past the span just written
     attn = ops.prefill_attention(q, kc, vc, prefix_len, q_offset=lengths)
-    return _ffn(p, cfg, x + attention_output(p["attn"], attn), aux)
+    attn = constrain(attn, "batch", None, "heads", None)
+    return _ffn(p, cfg, _residual(x + attention_output(p["attn"], attn)),
+                aux)
 
 
 def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -256,7 +280,7 @@ def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, new = ssm.mamba_forward_chunk(p["mamba"], cfg.mamba, h, carried,
                                          valid_lens, h_out=st.ssm[g])
     st.conv[g].copy_(new.conv)
-    return _ffn(p, cfg, x + y)
+    return _ffn(p, cfg, _residual(x + y))
 
 
 _XLSTM_FORWARD = {BlockKind.SLSTM: ssm.slstm_forward,
@@ -308,7 +332,7 @@ def _stateless_group(group: Tuple[Params, ...], cfg: ModelConfig, g: int,
                                         device=x.device)
             y, _ = ssm.mamba_forward(p["mamba"], cfg.mamba,
                                      rmsnorm(p["ln1"], x, cfg.norm_eps), zero)
-            x = _ffn(p, cfg, x + y, entry_aux, gen)
+            x = _ffn(p, cfg, _residual(x + y), entry_aux, gen)
         else:
             init = ssm.slstm_init_state if kind == BlockKind.SLSTM \
                 else ssm.mlstm_init_state
@@ -333,6 +357,7 @@ def stack_forward_stateless(blocks: Tuple[Params, ...], cfg: ModelConfig,
     summed over groups).  ``remat`` recomputes each group in the backward
     when a gradient is being taken; ``seed`` seeds the router jitter of
     layer l with ``seed + l`` (None: no jitter)."""
+    x = constrain(x, "batch", "seq", None)
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                 x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -351,6 +376,7 @@ def stack_forward_stateless(blocks: Tuple[Params, ...], cfg: ModelConfig,
                 _stateless_group, *args, use_reentrant=False)
         else:
             x, loss = _stateless_group(*args)
+        x = constrain(x, "batch", "seq", None)
         total = total + loss
     return x, total
 
@@ -370,6 +396,7 @@ def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
     (``model.prefill_chunk``).  ``prefix_len`` (B,) makes keys below it
     visible to every query (prefix-LM).  The stateless forward is
     ``stack_forward_stateless``."""
+    x = constrain(x, "batch", "seq", None)
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                 x.device)
     lengths = state.lengths
@@ -384,6 +411,7 @@ def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
             else:
                 x = _attn_full(p, cfg, x, positions, entry.k[g], entry.v[g],
                                lengths, inv_freq, prefix_len)
+        x = constrain(x, "batch", "seq", None)
     return x, StackState(per_entry=state.per_entry,
                          lengths=state.lengths + x.shape[1])
 
@@ -408,8 +436,12 @@ def _attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                           cfg.resolved_head_dim, positions[:, None], inv_freq)
     bg = device_batch
     # device rows: write the fresh token in place, attend over the cache
-    kc[rows, lengths] = k[:bg, 0].to(kc.dtype)
-    vc[rows, lengths] = v[:bg, 0].to(vc.dtype)
+    if is_dtensor(kc):
+        write_rows(kc, lengths[:, None], k[:bg].to(kc.dtype))
+        write_rows(vc, lengths[:, None], v[:bg].to(vc.dtype))
+    else:
+        kc[rows, lengths] = k[:bg, 0].to(kc.dtype)
+        vc[rows, lengths] = v[:bg, 0].to(vc.dtype)
     attn = ops.decode_attention(q[:bg, 0], kc, vc, (lengths + 1).int())
     if host is not None:
         if layer_idx == host.consume_layer:
@@ -433,6 +465,7 @@ def decode_step(blocks: Tuple[Params, ...], cfg: ModelConfig,
     """
     device_batch = state.lengths.shape[0]
     total = x.shape[0]
+    x = constrain(x, "batch", None)
     period = cfg.pattern_period
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                 x.device)
@@ -484,14 +517,15 @@ def decode_step(blocks: Tuple[Params, ...], cfg: ModelConfig,
                                          lens)
                 x_new = x_new[:, 0]
             if host is None:
-                x = x_new
+                x = constrain(x_new, "batch", None)
                 continue
             if in_window:
                 host_rows = torch.where(host.row_valid[:, None],
                                         x_new[device_batch:], x[device_batch:])
             else:
                 host_rows = x[device_batch:]
-            x = torch.cat([x_new[:device_batch], host_rows], dim=0)
+            x = constrain(torch.cat([x_new[:device_batch], host_rows], dim=0),
+                          "batch", None)
     new_state = StackState(per_entry=state.per_entry,
                            lengths=state.lengths + 1)
     return x, new_state, qkv_out

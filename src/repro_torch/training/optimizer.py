@@ -17,6 +17,12 @@ updated in slabs of at most ``SLAB`` elements along its leading rows
 temporaries for one (32, 4096, 14336) bf16 leaf would take ~30 GB
 whole.  Adafactor's RMS clip is over the whole leaf, so it first sums
 the squares of the update over the slabs, then applies it.
+
+A DTensor leaf (the dry-run's sharded state) is updated through its
+local shard, with the gradient, moments and parameter sharded alike:
+AdamW is elementwise, and the sums over a sharded dim (Adafactor's row
+and column means, its RMS clip, the global norm) are completed by an
+all-reduce over the mesh dims that shard it (``_complete_sum``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Iterator, NamedTuple, Tuple
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_map
+from repro_torch.distributed.sharding import is_dtensor
 
 SLAB = 1 << 26          # elements per fp32 temporary (256 MB)
 
@@ -46,6 +53,28 @@ def _slabs(n_rows: int, n_cols: int) -> Iterator[slice]:
     step = max(1, SLAB // max(n_cols, 1))
     for r0 in range(0, n_rows, step):
         yield slice(r0, min(r0 + step, n_rows))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (updates land in the DTensor); else t."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _complete_sum(part: torch.Tensor, leaf: torch.Tensor,
+                  dims: Tuple[int, ...]) -> torch.Tensor:
+    """A sum of ``leaf``'s local shard over its tensor dims ``dims`` (as
+    non-negative indices), completed over the ranks that shard any of
+    them: one all-reduce per such mesh dim.  ``part`` itself for a plain
+    leaf."""
+    if not is_dtensor(leaf):
+        return part
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    mesh = leaf.device_mesh
+    for m, p in enumerate(leaf.placements):
+        if isinstance(p, Shard) and p.dim in dims and mesh.size(m) > 1:
+            part = funcol.all_reduce(part, "sum", (mesh, m))
+    return part
 
 
 def _scalar(x: float) -> torch.Tensor:
@@ -90,7 +119,7 @@ class AdamW:
                       (state.m, state.v, params))
         for g, m, v, p in zip(gl, ml, vl, pl):
             c1d, c2d = c1.to(p.device), c2.to(p.device)
-            g2, m2d, v2d, p2 = (_rows(t) for t in (g, m, v, p))
+            g2, m2d, v2d, p2 = (_rows(_local(t)) for t in (g, m, v, p))
             for rs in _slabs(*p2.shape):
                 gf = g2[rs].float()
                 mn = b1 * m2d[rs].float() + (1 - b1) * gf
@@ -167,39 +196,56 @@ class Adafactor:
         return torch.clamp(rms / self.clip_threshold, min=1.0)
 
     def _full(self, g, vr, p, b2) -> None:
-        gf = g.float()
-        vr.copy_(b2 * vr + (1 - b2) * (gf * gf + self.eps))
-        update = gf * torch.rsqrt(torch.clamp(vr, min=self.eps))
-        denom = self._denom(update.square().sum(), max(p.numel(), 1))
-        p.copy_(self._apply(p, update, denom))
+        gf = _local(g).float()
+        vl, pl = _local(vr), _local(p)
+        vl.copy_(b2 * vl + (1 - b2) * (gf * gf + self.eps))
+        update = gf * torch.rsqrt(torch.clamp(vl, min=self.eps))
+        sumsq = _complete_sum(update.square().sum(), p,
+                              tuple(range(p.dim())))
+        denom = self._denom(sumsq, max(p.numel(), 1))
+        pl.copy_(self._apply(pl, update, denom))
 
     def _factored(self, g, vr, vc, p, b2) -> None:
-        n_r, n_c = p.shape[-2], p.shape[-1]
-        g3, p3 = g.reshape(-1, n_r, n_c), p.reshape(-1, n_r, n_c)
-        vr2, vc2 = vr.reshape(-1, n_r), vc.reshape(-1, n_c)
+        n_r, n_c = p.shape[-2], p.shape[-1]          # global sizes
+        rows_dim, cols_dim = p.dim() - 2, p.dim() - 1
+        gl, pl = _local(g), _local(p)
+        lr, lc = pl.shape[-2], pl.shape[-1]          # this rank's shard
+        g3, p3 = gl.reshape(-1, lr, lc), pl.reshape(-1, lr, lc)
+        vr2, vc2 = _local(vr).reshape(-1, lr), _local(vc).reshape(-1, lc)
         eps = self.eps
         # moments, one group (and slab of rows) at a time
         for lg in range(g3.shape[0]):
-            colsum = torch.zeros(n_c, dtype=torch.float32, device=p.device)
-            for rs in _slabs(n_r, n_c):
+            colsum = torch.zeros(lc, dtype=torch.float32, device=pl.device)
+            for rs in _slabs(lr, lc):
                 gsq = g3[lg, rs].float().square() + eps
-                vr2[lg, rs] = b2 * vr2[lg, rs] + (1 - b2) * gsq.mean(-1)
+                if lc == n_c:
+                    row = gsq.mean(-1)
+                else:
+                    row = _complete_sum(gsq.sum(-1), p, (cols_dim,)) / n_c
+                vr2[lg, rs] = b2 * vr2[lg, rs] + (1 - b2) * row
                 colsum += gsq.sum(0)
+            colsum = _complete_sum(colsum, p, (rows_dim,))
             vc2[lg] = b2 * vc2[lg] + (1 - b2) * (colsum / n_r)
 
         def updates():
             for lg in range(g3.shape[0]):
-                row_mean = torch.clamp(vr2[lg].mean(), min=eps)
-                for rs in _slabs(n_r, n_c):
+                if lr == n_r:
+                    row_mean = vr2[lg].mean()
+                else:
+                    row_mean = _complete_sum(vr2[lg].sum(), p,
+                                             (rows_dim,)) / n_r
+                row_mean = torch.clamp(row_mean, min=eps)
+                for rs in _slabs(lr, lc):
                     r = vr2[lg, rs] / row_mean
                     precond = r[:, None] * vc2[lg][None, :]
                     yield lg, rs, g3[lg, rs].float() * torch.rsqrt(
                         torch.clamp(precond, min=eps))
 
         # update clipping: RMS over the whole leaf, then the step
-        sumsq = torch.zeros((), dtype=torch.float32, device=p.device)
+        sumsq = torch.zeros((), dtype=torch.float32, device=pl.device)
         for _, _, u in updates():
             sumsq = sumsq + u.square().sum()
+        sumsq = _complete_sum(sumsq, p, tuple(range(p.dim())))
         denom = self._denom(sumsq, p.numel())
         for lg, rs, u in updates():
             p3[lg, rs] = self._apply(p3[lg, rs], u, denom)
@@ -219,7 +265,13 @@ def global_norm(tree) -> torch.Tensor:
     the leaves' device), taken in slabs."""
     total = None
     for leaf in tree_flatten(tree)[0]:
-        rows = _rows(leaf)
+        rows = _rows(_local(leaf))
+        if is_dtensor(leaf):        # the shard's sum, completed once
+            part = sum(rows[rs].float().square().sum()
+                       for rs in _slabs(*rows.shape))
+            part = _complete_sum(part, leaf, tuple(range(leaf.dim())))
+            total = part if total is None else total + part
+            continue
         for rs in _slabs(*rows.shape):
             part = rows[rs].float().square().sum()
             total = part if total is None else total + part.to(total.device)
@@ -237,7 +289,7 @@ def clip_by_global_norm(grads, max_norm: float):
     for leaf in tree_flatten(grads)[0]:
         # a 0-d fp32 factor: the product is taken in fp32 and rounded once
         # to the leaf's dtype, the reference's (g.astype(f32) * s).astype
-        leaf.mul_(scale.to(leaf.device))
+        _local(leaf).mul_(scale.to(leaf.device))
     return grads, norm
 
 

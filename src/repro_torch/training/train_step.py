@@ -6,9 +6,9 @@ step(state, batch, rng) -> (state, metrics): loss -> grad (autograd
 through the stateless forward, whose attention and Mamba scan run their
 hand-written backward kernels on the card) -> optional int8 compression
 with error feedback -> clip by global norm -> optimizer.  Microbatches
-of ``accum_steps`` run one after another with fp32 gradient sums.  The
-reference's sharding constraints are no-ops on one device and are left
-out.  The optimizer updates the parameters in place, so the returned
+of ``accum_steps`` run one after another with fp32 gradient sums.  On
+DTensor parameters (the dry-run's) the loss is vocab-parallel and each
+gradient is brought to its parameter's placements.  The optimizer updates the parameters in place, so the returned
 state holds the tensors of the one passed in.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.distributed import compression
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import unembed
 from repro_torch.models.model import (forward_hidden, forward_train,
@@ -52,12 +53,86 @@ class TrainConfig:
 def _nll(logits: torch.Tensor, labels: torch.Tensor,
          z_loss: float) -> torch.Tensor:
     logits = logits.float()
+    if is_dtensor(logits):
+        return _nll_vocab_parallel(logits, labels, z_loss)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if z_loss:
         nll = nll + z_loss * logz.square()
     return nll
+
+
+def _nll_vocab_parallel(logits: torch.Tensor, labels: torch.Tensor,
+                        z_loss: float) -> torch.Tensor:
+    """``_nll`` of DTensor logits (B, T, V), on each rank's vocab shard
+    (Megatron's vocab-parallel cross-entropy): the log-sum-exp from a max
+    and a sum completed over the vocab's mesh dims, the gold logit from
+    the shard that holds it.  No mesh dim gathers the vocab, forward or
+    backward.  Labels (B, T) -> (B, T), placed as the logits' rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, vocab_dim = logits.device_mesh, logits.dim() - 1
+    pl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    vocab = tuple(m for m, p in enumerate(pl)
+                  if isinstance(p, Shard) and p.dim == vocab_dim)
+    row_pl = [Replicate() if m in vocab else p for m, p in enumerate(pl)]
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    ids = _as_placed(labels, mesh, row_pl).to_local().long()
+    nll = _VocabParallelNLL.apply(logits.to_local(), ids - offset[-1],
+                                  mesh, vocab, z_loss)
+    return DTensor.from_local(nll, mesh, row_pl, run_check=False,
+                              shape=labels.shape,
+                              stride=(labels.shape[1], 1))
+
+
+def _as_placed(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    from repro_torch.distributed.sharding import as_dtensor
+    return as_dtensor(x, mesh).redistribute(mesh, placements)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """nll = logz - gold (+ z_loss * logz^2) of one rank's vocab shard of
+    fp32 logits (..., V_local), ``ids`` already relative to the shard's
+    first id; the max, the sum and the gold logit are completed by
+    all-reduces over ``vocab`` (mesh dims of ``mesh``).  The gradient,
+    softmax * (1 + 2 z logz) - onehot, is local."""
+
+    @staticmethod
+    def forward(ctx, local, ids, mesh, vocab, z_loss):
+        from torch.distributed import _functional_collectives as funcol
+
+        def complete(x, op):
+            for m in vocab:
+                if mesh.size(m) > 1:
+                    x = funcol.all_reduce(x, op, (mesh, m))
+            return x
+
+        m = complete(local.amax(-1), "max")
+        e = torch.exp(local - m[..., None])
+        logz = torch.log(complete(e.sum(-1), "sum")) + m
+        hit = (ids >= 0) & (ids < local.shape[-1])
+        safe = ids.clamp(0, local.shape[-1] - 1)
+        gold = torch.where(hit, torch.gather(local, -1, safe[..., None])[..., 0],
+                           torch.zeros((), dtype=local.dtype,
+                                       device=local.device))
+        nll = logz - complete(gold, "sum")
+        if z_loss:
+            nll = nll + z_loss * logz.square()
+        ctx.save_for_backward(local, logz, safe, hit)
+        ctx.z_loss = z_loss
+        return nll
+
+    @staticmethod
+    def backward(ctx, dnll):
+        local, logz, safe, hit = ctx.saved_tensors
+        scale = dnll if not ctx.z_loss else dnll * (1 + 2 * ctx.z_loss * logz)
+        grad = torch.exp(local - logz[..., None]) * scale[..., None]
+        grad = grad.scatter_add(-1, safe[..., None],
+                                -(dnll * hit)[..., None])
+        return grad, None, None, None, None
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -141,6 +216,11 @@ def loss_grads(loss_fn: Callable, params, batch, rng):
             p.requires_grad_(flag)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
+    # a sharded parameter's gradient takes its placements (FSDP's
+    # reduce-scatter), so the optimizer updates each rank's shard
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if is_dtensor(p) and tuple(g.placements) != tuple(p.placements)
+             else g for g, p in zip(grads, leaves)]
     return spec.unflatten(grads), {k: v.detach() for k, v in metrics.items()}
 
 

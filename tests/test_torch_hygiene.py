@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro`` (only the
-``tests/test_torch_*`` files import both), and the port never calls a
-library attention in place of its kernels."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no port example (``examples/torch_*.py``) imports
+JAX or the JAX package ``repro`` (only the ``tests/test_torch_*`` files
+import both), and the port never calls a library attention in place of
+its kernels."""
 import ast
 import pathlib
 
@@ -9,7 +10,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,9 +38,15 @@ def test_port_files_exist():
                    "serving/gateway/client", "serving/simulator",
                    "launch/gateway", "training/__init__",
                    "training/optimizer", "training/train_step",
-                   "training/checkpoint", "core/tree", "launch/train"):
+                   "training/checkpoint", "core/tree", "launch/train",
+                   "launch/shapes", "launch/analysis", "launch/mesh",
+                   "launch/dryrun", "distributed/sharding",
+                   "kernels/launches"):
         assert f"src/repro_torch/{module}.py" in names
     assert len(names) > 20
+    for example in ("quickstart", "offload_demo", "serve_chat",
+                    "train_tiny"):
+        assert f"examples/torch_{example}.py" in names
     # the import check below runs over every file found here, training/
     # and launch/train.py among them; the backward kernels' sources
     for source in ("prefill_attention_bwd", "mamba_scan_bwd"):
