@@ -16,7 +16,12 @@ Phases (any failure exits non-zero):
      bound -- at the main-path shapes (llama3.1-8b's, and deepseek-moe-
      16b's: group 1, head_dim 128), and also at a long decode (B 8,
      S 8192), a long causal prefill (T 4096) and a long scan (B 1,
-     T 4096);
+     T 4096); then the xLSTM recurrences at xlstm-125m's shapes (sLSTM
+     4 heads of 192, mLSTM 4 of 384): the chat chunk (B 2 x T 64) and
+     decode (B 2 x T 1) at 1e-5 of the largest value, frozen rows and a
+     split in T bitwise, one launch per call, one long call (T 4096;
+     the sLSTM against a float64 loop), both backward kernels at the
+     training shape (B 2 x T 1024) at 1e-4 and bitwise on repeat;
   3. profile: ``OfflineProfiler`` on llama3.1-8b at published width over
      the startup grid -- every table point finite and positive, both
      attention kernels launched, the profile saved under chiprun_out/ and
@@ -26,7 +31,10 @@ Phases (any failure exits non-zero):
      to d_model 256 in fp32 -- greedy tokens from raw prefill+decode,
      engine device rows and host-offloaded rows must be identical; and
      serving-chunked's chat traffic must give the same streams with and
-     without the prefix cache, rebalancing and preemption;
+     without the prefix cache, rebalancing and preemption; xlstm-125m
+     at published width in fp32, prefill + 8 greedy steps through the
+     recurrences' kernels against the CPU's plain loops and the card's
+     (logits within 2e-3 of the largest, equal tokens up to ties);
   5. serving: InferenceServer on llama3.1-8b at its published width, cut
      to 16 layers (bf16, random weights from a seed), 8 requests over 4
      device + 4 host slots, whole-prompt prefill, no prefix cache or tier
@@ -70,7 +78,8 @@ Phases (any failure exits non-zero):
  11. serving-xlstm: xlstm-125m at published width and depth (bf16),
      GPU-only, on serving-chunked's chat traffic with the defaults and
      with the prefix cache, rebalancing and preemption off: the streams
-     equal up to two-ULP ties; a traced window;
+     equal up to two-ULP ties, both recurrence kernels launched; traced
+     windows with the kernels and with the plain loops, in turns;
  12. vlm: paligemma-3b at published width served as a text model
      (phase 5's traffic), then prefix-LM prefill over 256 patch
      embeddings + 32 tokens and 8 decode steps (fp32), held against
@@ -100,21 +109,24 @@ Phases (any failure exits non-zero):
      --smoke-test``;
  16. train: llama3.1-8b at published width and depth (bf16, Adafactor
      lr 1e-4, remat, the loss over chunks of 256 tokens), 5 steps of B 2 x
-     T 1024 on one synthetic batch, and the dense-FFN Jamba period (8
-     layers) at published width, 3 steps of B 1 x T 1024: every loss and
-     grad norm finite, the last loss below the first, step time, tokens/s,
-     peak memory and launches (each attention and Mamba layer's forward
-     twice a step, its backward kernel once); one fp32 backward of both
-     models cut to 2 layers (Jamba: a Mamba and its attention layer) on
-     the card against the CPU's plain versions, leaf by leaf; 2 steps,
+     T 1024 on one synthetic batch, the dense-FFN Jamba period (8
+     layers) at published width, 3 steps of B 1 x T 1024, and
+     xlstm-125m at published width and depth, 3 steps of B 2 x T 1024:
+     every loss and grad norm finite, the last loss below the first,
+     step time, tokens/s, peak memory and launches (each attention,
+     Mamba, sLSTM and mLSTM layer's forward twice a step, its backward
+     kernel once); one fp32 backward of the three models cut to 2 layers
+     (Jamba: a Mamba and its attention layer) on the card against the
+     CPU's plain versions, leaf by leaf; 2 steps,
      checkpoint, restore into a fresh state and a 3rd step bitwise the
      uninterrupted one; ``python -m repro_torch.launch.train --steps 30
      --ckpt-every 10`` and its ``--resume``.
- 17. dryrun: ``python -m repro_torch.launch.dryrun`` on four cells at
+ 17. dryrun: ``python -m repro_torch.launch.dryrun`` on five cells at
      published width and depth, on the production meshes over a fake
      process group (llama3.1-8b decode_32k overlap on 16x16 and train_4k
      on 2x16x16, deepseek-moe-16b decode_32k with expert-TP, Jamba
-     long_500k): no "error", ``argument_bytes`` equal to the specs' own
+     long_500k, xlstm-125m train_4k through the recurrences' meta rules):
+     no "error", ``argument_bytes`` equal to the specs' own
      sum, collectives on the multi-pod train cell; then the memory check:
      llama3.1-8b cut to 2 layers, one AdamW step at B 2 x T 1024 traced on
      a (1, 1) mesh and taken on the card, ``argument_bytes`` equal to the
@@ -144,6 +156,7 @@ reads them just after).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -303,10 +316,10 @@ def time_ms(fn, *, warmup: int = 3, reps: int = 20,
     return statistics.median(times)
 
 
-def device_ms(fn, *, reps: int = 20):
-    """Device time per call of ``fn``: the summed self time of every
-    kernel it ran, from ``torch.profiler`` (no host enqueue); None when
-    the profiler reports no device time."""
+def device_ms_by_kernel(fn, *, reps: int = 20) -> dict:
+    """Device time per call of ``fn``, by the name of each kernel it ran
+    (the self time ``torch.profiler`` reports, no host enqueue); empty
+    when the profiler reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -316,11 +329,21 @@ def device_ms(fn, *, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    parts = {}
     for ev in prof.key_averages():
-        total_us += getattr(ev, "self_device_time_total",
-                            getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / reps / 1e3 if total_us > 0 else None
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            parts[ev.key] = parts.get(ev.key, 0.0) + us / reps / 1e3
+    return parts
+
+
+def device_ms(fn, *, reps: int = 20):
+    """Device time per call of ``fn``: the summed self time of every
+    kernel it ran (``device_ms_by_kernel``); None when the profiler
+    reports no device time."""
+    total = sum(device_ms_by_kernel(fn, reps=reps).values())
+    return total if total > 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -1543,7 +1566,382 @@ def phase_kernels() -> dict:
         records[name]["registry_shapes"] = recs
     # last again: the backward kernels (training)
     records.update(phase_kernels_bwd(gen))
+    # last again: the xLSTM recurrences
+    records.update(phase_kernels_xlstm(gen))
     return records
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the xLSTM recurrences (forward and backward)
+# ---------------------------------------------------------------------------
+
+# xlstm-125m's recurrences: the sLSTM over d 768 (4 heads of 192, bf16
+# recurrent gates), the mLSTM over inner 1536 (4 heads of 384); serving-
+# xlstm's chat traffic decodes 2 device rows and prefills chunks of 64
+# tokens; one long call of 4096 tokens; the train phase's B 2 x T 1024
+XLSTM = dict(heads=4, slstm_hd=192, mlstm_hd=384, rows=2, chunk=64,
+             long=4096, train_rows=2, train_seq=1024, cut=17)
+XLSTM_TOL = 1e-5        # |kernel - plain| over the largest |value|
+XLSTM_LONG_TOL = 1e-4   # the mLSTM at T 4096 (the measured ratio printed)
+XLSTM_BWD_TOL = 1e-4    # of each gradient's largest |element|
+# The sLSTM at T 4096 is held against a float64 loop instead: its
+# stabiliser m drifts up to ~2000 over such a call, where fp32 rounds
+# f + m to ~1e-4, so any two fp32 versions part by ~1e-3 of the largest
+# h, and the plain version itself lies 1.4e-3 to 3.0e-3 from float64.
+# In each of XLSTM_F64_DRAWS draws the kernel's error against float64
+# must be within XLSTM_F64_FACTOR times the plain version's: the draws
+# read 0.825x, 0.584x and 1.348x on one H100 80GB HBM3, 700.00 W.
+XLSTM_F64_FACTOR = 2
+XLSTM_F64_DRAWS = 3
+XLSTM_KERNELS = {
+    # name: (wrapper, its kernel's name in a graph dump, source, replaces)
+    "slstm_recurrence": ("slstm_scan_cuda", "slstm_scan_kernel",
+                         "src/repro_torch/csrc/slstm_scan.cu",
+                         "src/repro/models/ssm.py:246"),
+    "mlstm_recurrence": ("mlstm_scan_cuda", "mlstm_scan_kernel",
+                         "src/repro_torch/csrc/mlstm_scan.cu",
+                         "src/repro/models/ssm.py:369"),
+    "slstm_recurrence_bwd": ("slstm_scan_bwd_cuda", "slstm_bwd_kernel",
+                             "src/repro_torch/csrc/slstm_scan_bwd.cu",
+                             "src/repro/models/ssm.py:246"),
+    "mlstm_recurrence_bwd": ("mlstm_scan_bwd_cuda", "mlstm_bwd_walk",
+                             "src/repro_torch/csrc/mlstm_scan_bwd.cu",
+                             "src/repro/models/ssm.py:369"),
+}
+# the mLSTM backward's call is a sequence of four kernels, its launch
+# count counts calls: h . dh, the reverse walk, the partials' reduction
+# and the gates' serial pass
+MLSTM_BWD_PARTS = ("mlstm_bwd_hdot", "mlstm_bwd_walk", "mlstm_bwd_reduce",
+                   "mlstm_bwd_gates")
+
+
+def _slstm_case(gen, b, t):
+    """gates_x, r (bf16, as served), bias and a carried state c, n, h, m
+    at xlstm-125m's sLSTM shapes."""
+    import torch
+    nh, hd = XLSTM["heads"], XLSTM["slstm_hd"]
+    d = nh * hd
+    return [_randn(gen, (b, t, 4 * d), torch.float32, "cuda"),
+            (_randn(gen, (nh, hd, 4 * hd), torch.float32, "cuda")
+             / hd ** 0.5).to(torch.bfloat16),
+            0.1 * _randn(gen, (4 * d,), torch.float32, "cuda"),
+            _randn(gen, (b, nh, hd), torch.float32, "cuda"),
+            1.0 + _randn(gen, (b, nh, hd), torch.float32, "cuda").abs(),
+            _randn(gen, (b, nh, hd), torch.float32, "cuda"),
+            _randn(gen, (b, nh, hd), torch.float32, "cuda")]
+
+
+def _mlstm_case(gen, b, t):
+    """q, k, v, i_pre, f_pre and a carried state cmat, n, m at
+    xlstm-125m's mLSTM shapes."""
+    import torch
+    nh, hd = XLSTM["heads"], XLSTM["mlstm_hd"]
+    q, k, v = (_randn(gen, (b, t, nh, hd), torch.float32, "cuda")
+               for _ in range(3))
+    return [q, k / hd ** 0.5, v,
+            _randn(gen, (b, t, nh), torch.float32, "cuda"),
+            torch.nn.functional.logsigmoid(
+                _randn(gen, (b, t, nh), torch.float32, "cuda") + 2.0),
+            0.3 * _randn(gen, (b, nh, hd, hd), torch.float32, "cuda"),
+            0.3 * _randn(gen, (b, nh, hd), torch.float32, "cuda"),
+            _randn(gen, (b, nh), torch.float32, "cuda")]
+
+
+def _xlstm_fns(kind):
+    """(case maker, kernel wrapper, plain version, number of per-step
+    inputs) of one recurrence."""
+    from repro_torch.kernels import ref, xlstm
+    if kind == "slstm":
+        return (_slstm_case, xlstm.slstm_scan_cuda,
+                ref.slstm_recurrence_ref, 1)
+    return _mlstm_case, xlstm.mlstm_scan_cuda, ref.mlstm_recurrence_ref, 5
+
+
+def xlstm_bound(name: str, b: int, t: int) -> dict:
+    """The least time of one call at xlstm-125m's shapes, from the
+    formulas the dry-run counts with (``analysis.xlstm_costs``): every
+    input byte read once and every output byte written once, against the
+    fp32 operations on the CUDA cores (67 TFLOP/s)."""
+    import torch
+    from repro_torch.launch.analysis import xlstm_costs
+    nh = XLSTM["heads"]
+    if name.startswith("slstm"):
+        hd = XLSTM["slstm_hd"]
+        shapes = dict(gates=(b, t, 4 * nh * hd), state=(b, nh, hd),
+                      dtype=torch.bfloat16,
+                      save=name == "slstm_recurrence" and t == XLSTM[
+                          "train_seq"])
+    else:
+        shapes = dict(q=(b, t, nh, XLSTM["mlstm_hd"]), dtype=torch.float32)
+    flops, nbytes = xlstm_costs(name, shapes)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flop = flops / PEAK_FLOPS["float32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_flop),
+            "bound_by": "bytes" if t_bytes >= t_flop else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _slstm_f64(gx, r, bias, c, n, h, m):
+    """The sLSTM's emitted h by ``ref.slstm_recurrence_ref``'s loop in
+    float64 (every token real)."""
+    import torch
+    b, t = gx.shape[:2]
+    nh, hd = r.shape[0], r.shape[1]
+    gx, r, bias, c, n, h, m = (x.double() for x in (gx, r, bias, c, n, h,
+                                                    m))
+    bias = bias.reshape(nh, 4 * hd)
+    hs = []
+    for i in range(t):
+        g = gx[:, i].reshape(b, nh, 4 * hd) \
+            + torch.einsum("bhd,hde->bhe", h, r) + bias
+        i_t, f_t, z_t, o_t = g.chunk(4, dim=-1)
+        m_new = torch.maximum(f_t + m, i_t)
+        i_g, f_g = torch.exp(i_t - m_new), torch.exp(f_t + m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_t)
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_t) * c / torch.clamp(n.abs(), min=1e-6)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def _slstm_long_f64(gen):
+    """The sLSTM kernel and its plain version over one call of T 4096
+    (a carried state, then the zero state, alternately), each against
+    the float64 loop, as a share of the largest |h|: the worst kernel
+    error over the draws, the worst ratio of the kernel's error to the
+    plain version's in one draw, and the worst kernel-against-plain.
+    Each draw's pair is printed."""
+    from repro_torch.kernels import ref, xlstm
+    k_err = ratio = kp = 0.0
+    for draw in range(XLSTM_F64_DRAWS):
+        args = _slstm_case(gen, 1, XLSTM["long"])
+        if draw % 2:
+            args[3:6] = [x.zero_() for x in args[3:6]]
+            args[6].fill_(-1e30)
+        got = xlstm.slstm_scan_cuda(*args)[0]
+        plain = ref.slstm_recurrence_ref(*args)[0]
+        exact = _slstm_f64(*args)
+        scale = float(exact.abs().max())
+        k_draw = float((got.double() - exact).abs().max()) / scale
+        p_draw = float((plain.double() - exact).abs().max()) / scale
+        log(f"  slstm_recurrence at T {XLSTM['long']}, draw {draw}: against "
+            f"float64 kernel {k_draw:.3e}, plain {p_draw:.3e} of the "
+            f"largest |h| ({k_draw / p_draw:.3f}x)")
+        k_err, ratio = max(k_err, k_draw), max(ratio, k_draw / p_draw)
+        kp = max(kp, _rel_err(got, plain))
+        del args, got, plain, exact
+    return k_err, ratio, kp
+
+
+def check_xlstm(gen) -> dict:
+    """Both forward kernels against their plain versions at the chat
+    traffic's prefill chunk (B 2 x T 64, one row ending at 40) and its
+    decode (B 2 x T 1, one row frozen): within XLSTM_TOL of the largest
+    |value|, the frozen row's state bit for bit, a chunk split in T with
+    the state carried bitwise one call, one launch per call (graph
+    dump); then one long call (B 1 x T 4096): the mLSTM within
+    XLSTM_LONG_TOL of its plain version, the sLSTM against a float64 loop
+    (XLSTM_F64_FACTOR).
+    Returns the worst (ratio, absolute error) at the serving shapes per
+    kernel."""
+    import torch
+    errs = {}
+    rows, chunk, cut = XLSTM["rows"], XLSTM["chunk"], XLSTM["cut"]
+    for kind in ("slstm", "mlstm"):
+        case, kernel, plain, nseq = _xlstm_fns(kind)
+        name = f"{kind}_recurrence"
+        worst = worst_abs = 0.0
+        for t, lens_v in ((chunk, [chunk, 40]), (1, [1, 0])):
+            args = case(gen, rows, t)
+            lens = torch.tensor(lens_v, dtype=torch.int32, device="cuda")
+            got = kernel(*args, lens)
+            want = plain(*args, lens)
+            torch.cuda.synchronize()
+            err = max(_rel_err(g, w) for g, w in zip(got, want))
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, max(float((g - w).abs().max())
+                                           for g, w in zip(got, want)))
+            if err > XLSTM_TOL:
+                fail(f"{name} at B {rows} x T {t}: |kernel - plain| / max "
+                     f"{err:.3e} > {XLSTM_TOL}")
+            if t == 1 and not all(torch.equal(g[1], s[1]) for g, s in
+                                  zip(got[1:], args[-len(got) + 1:])):
+                fail(f"{name}: a row of length 0 changed its state")
+            if t == chunk:
+                seq, rest = args[:nseq], args[nseq:-(len(got) - 1)]
+                state = args[-(len(got) - 1):]
+                first = kernel(*[x[:, :cut].contiguous() for x in seq],
+                               *rest, *state, torch.clamp(lens, max=cut))
+                second = kernel(*[x[:, cut:].contiguous() for x in seq],
+                                *rest, *first[1:],
+                                torch.clamp(lens - cut, min=0))
+                if not (torch.equal(torch.cat([first[0], second[0]], 1),
+                                    got[0])
+                        and all(torch.equal(a, b) for a, b in
+                                zip(second[1:], got[1:]))):
+                    fail(f"{name}: a chunk split at {cut} is not bitwise "
+                         "one call")
+            else:
+                kinds = graph_launches(lambda: kernel(*args, lens), 10,
+                                       XLSTM_KERNELS[name][1])
+                if kinds != {"kernel": 10}:
+                    fail(f"{name}: 10 decode calls put {kinds} on the "
+                         "stream; want one launch each")
+        if kind == "mlstm":
+            args = case(gen, 1, XLSTM["long"])
+            got = kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            long_err = max(_rel_err(g, w) for g, w in zip(got, want))
+            long_text = f"{long_err:.3e} (bar {XLSTM_LONG_TOL})"
+            if long_err > XLSTM_LONG_TOL:
+                fail(f"{name} at T {XLSTM['long']}: {long_err:.3e}")
+            del args, got, want
+        else:
+            k_err, ratio, kp = _slstm_long_f64(gen)
+            long_text = (f"against float64: kernel up to {k_err:.3e}, up to "
+                         f"{ratio:.3f}x the plain version's in a draw (bar "
+                         f"{XLSTM_F64_FACTOR}x), kernel against plain "
+                         f"{kp:.3e}")
+            if ratio > XLSTM_F64_FACTOR:
+                fail(f"{name} at T {XLSTM['long']}: {long_text}")
+        log(f"  {name}: |kernel - plain| / max |value| {worst:.3e} at the "
+            f"chunk and decode shapes (bar {XLSTM_TOL}); at B 1 x T "
+            f"{XLSTM['long']} {long_text}; frozen row bitwise, split at "
+            f"{cut} bitwise, one launch per call")
+        errs[name] = (worst, worst_abs)
+    return errs
+
+
+def _xlstm_bwd_case(gen, kind):
+    """The backward kernel's inputs at the train phase's shape: the saved
+    forward (sLSTM) or the forward's inputs and h (mLSTM), dhs and the
+    final state's gradients."""
+    import torch
+    from repro_torch.kernels import xlstm
+    b, t = XLSTM["train_rows"], XLSTM["train_seq"]
+    if kind == "slstm":
+        gx, r, bias, c, n, h, m = _slstm_case(gen, b, t)
+        hs, _, _, _, _, acts, cs, ns, ms = xlstm.slstm_scan_cuda(
+            gx, r, bias, c, n, h, m, save=True)
+        dhs = _randn(gen, hs.shape, torch.float32, "cuda")
+        dstate = tuple(_randn(gen, c.shape, torch.float32, "cuda")
+                       for _ in range(4))
+        nh, hd = XLSTM["heads"], XLSTM["slstm_hd"]
+        return ((r, acts, cs, ns, ms, c, n, m, dhs, dstate),
+                (r, acts.reshape(b, t, nh, 4 * hd), cs, ns, ms, c, n, m, dhs,
+                 dstate))
+    args = _mlstm_case(gen, b, t)
+    hs = xlstm.mlstm_scan_cuda(*args)[0]
+    dhs = _randn(gen, hs.shape, torch.float32, "cuda")
+    dstate = tuple(_randn(gen, x.shape, torch.float32, "cuda")
+                   for x in args[5:])
+    full = (*args, hs, dhs, dstate)
+    return full, full
+
+
+def _xlstm_record(name, errs, ms, plain_ms, b, t, shape) -> dict:
+    bd = xlstm_bound(name, b, t)
+    _, _, source, replaces = XLSTM_KERNELS[name]
+    rel, err = errs
+    log(f"  {name} @ {shape}: time per call: kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms; bound {bd['bound_ms']:.5f} ms "
+        f"({bd['bound_by']}: {bd['bytes']:.0f} B, {bd['flops']:.0f} fp32 "
+        f"flop), kernel at {100 * bd['bound_ms'] / ms:.2f}% of bound; max "
+        f"|kernel - plain| {err:.3e} ({rel:.3e} of the largest) [{CARD}]")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": None, "shape": shape}
+
+
+def bench_xlstm(gen, errs) -> dict:
+    """Device time of each forward kernel and its plain version at the
+    chat chunk (the records), at decode and at the long call (events,
+    printed); each backward kernel against its plain version at the
+    train shape (XLSTM_BWD_TOL of each gradient's max, bitwise on
+    repeat) and timed there (events; the plain version once).  No
+    PyTorch call computes these recurrences (library: none)."""
+    import torch
+    from repro_torch.kernels import ref, xlstm
+    records = {}
+    rows, chunk = XLSTM["rows"], XLSTM["chunk"]
+    for kind in ("slstm", "mlstm"):
+        case, kernel, plain, _ = _xlstm_fns(kind)
+        name = f"{kind}_recurrence"
+        args = case(gen, rows, chunk)
+        kms = device_ms(lambda: kernel(*args)) or time_ms(lambda: kernel(
+            *args))
+        pms = device_ms(lambda: plain(*args), reps=3) or time_ms(
+            lambda: plain(*args), warmup=1, reps=3, rounds=1)
+        rec = _xlstm_record(name, errs[name], kms, pms, rows, chunk,
+                            f"chat chunk B{rows} T{chunk} H4 "
+                            f"hd{XLSTM[kind + '_hd']}")
+        dec = case(gen, rows, 1)
+        dms = time_ms(lambda: kernel(*dec))
+        dpl = time_ms(lambda: plain(*dec), reps=5, rounds=3)
+        ld = case(gen, 1, XLSTM["long"])
+        lms = time_ms(lambda: kernel(*ld), warmup=1, reps=3, rounds=3)
+        dbd = xlstm_bound(name, rows, 1)
+        lbd = xlstm_bound(name, 1, XLSTM["long"])
+        log(f"  {name} decode B{rows} T1 (events): kernel {dms:.5f} ms, "
+            f"plain {dpl:.5f} ms, bound {dbd['bound_ms']:.5f} ms "
+            f"({dbd['bound_by']}); long B1 T{XLSTM['long']} (events): "
+            f"kernel {lms:.5f} ms, bound {lbd['bound_ms']:.5f} ms "
+            f"({lbd['bound_by']}) [{CARD}]")
+        rec["decode"] = {"ms": dms, "plain_ms": dpl,
+                         "bound_ms": dbd["bound_ms"]}
+        rec["long"] = {"ms": lms, "bound_ms": lbd["bound_ms"]}
+        records[name] = rec
+        del args, dec, ld
+    b, t = XLSTM["train_rows"], XLSTM["train_seq"]
+    for kind in ("slstm", "mlstm"):
+        name = f"{kind}_recurrence_bwd"
+        kernel = getattr(xlstm, XLSTM_KERNELS[name][0])
+        plain = getattr(ref, f"{kind}_recurrence_bwd_ref")
+        kargs, pargs = _xlstm_bwd_case(gen, kind)
+        got = kernel(*kargs)
+        again = kernel(*kargs)
+        t0 = time.perf_counter()
+        want = plain(*pargs)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        err = max(_rel_err(g.reshape(w.shape), w)
+                  for g, w in zip(got, want))
+        abs_err = max(float((g.reshape(w.shape) - w).abs().max())
+                      for g, w in zip(got, want))
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
+        if err > XLSTM_BWD_TOL or not same:
+            fail(f"{name} at B {b} x T {t}: |kernel - plain| / max grad "
+                 f"{err:.3e} (bar {XLSTM_BWD_TOL}), repeat bitwise {same}")
+        del got, again, want
+        kms = time_ms(lambda: kernel(*kargs), warmup=1, reps=3, rounds=3)
+        log(f"  {name}: |kernel - plain| / max |grad| {err:.3e} (bar "
+            f"{XLSTM_BWD_TOL}), repeat bitwise")
+        records[name] = _xlstm_record(
+            name, (err, abs_err), kms, pms, b, t,
+            f"train B{b} T{t} H4 hd{XLSTM[kind + '_hd']} (events; plain "
+            "one call, host clock)")
+        if kind == "mlstm":
+            # one call is four kernels; its count counts calls
+            by_kernel = device_ms_by_kernel(lambda: kernel(*kargs), reps=3)
+            parts = {short: ms for short in MLSTM_BWD_PARTS
+                     for key, ms in by_kernel.items() if short in key}
+            log(f"  {name}: device ms per call by kernel (profiler) "
+                + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
+                + f"; every kernel {sum(by_kernel.values()):.5f} [{CARD}]")
+            if set(parts) != set(MLSTM_BWD_PARTS):
+                fail(f"{name}: the profiler saw {sorted(parts)}, want "
+                     f"{list(MLSTM_BWD_PARTS)}")
+            records[name].update(kernels_per_call=len(MLSTM_BWD_PARTS),
+                                 parts_ms=parts)
+        del kargs, pargs
+    return records
+
+
+def phase_kernels_xlstm(gen) -> dict:
+    return bench_xlstm(gen, check_xlstm(gen))
 
 
 # ---------------------------------------------------------------------------
@@ -1609,6 +2007,100 @@ def _exactness(cfg) -> None:
         fail("device, host-offloaded and raw greedy tokens differ")
 
 
+# xlstm-125m at published width and depth in fp32: one prompt of 64
+# tokens, then 8 greedy steps, on the card through the recurrences'
+# kernels, on the card through their plain loops and on the CPU through
+# the plain loops, from the same weights; every step's logits within
+# XLSTM_LOGIT_TOL of the largest |logit|, card against CPU and kernels
+# against plain loops (fp32 products of widths 768-3072 and recurrences
+# summed in other orders through 12 layers: a first bar of 1e-4 read
+# 6.55e-4 on one H100 80GB HBM3, 700.00 W, with equal tokens)
+XLSTM_EXACT = dict(prompt_len=64, decode=8)
+XLSTM_LOGIT_TOL = 2e-3
+
+
+def _xlstm_exactness() -> None:
+    """xlstm-125m (fp32) prefill + 8 greedy steps on the card (kernels)
+    against the CPU, and against the card's plain loops: logits within
+    XLSTM_LOGIT_TOL, the greedy tokens equal (a stream may part only
+    where the other's top-2 gap is within two logit ULPs, and is
+    compared no further), both forward kernels launched."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import (ModelParams, decode_step,
+                                    init_decode_state, init_params, prefill)
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              param_dtype="float32", compute_dtype="float32")
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    card_params = ModelParams(*(tree_map(lambda a: a.cuda(), part)
+                                for part in cpu_params))
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, XLSTM_EXACT["prompt_len"]).tolist()
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    runs = {}
+    for dev, params, plain in (("cuda", card_params, False),
+                               ("cuda plain", card_params, True),
+                               ("cpu", cpu_params, False)):
+        t0 = time.perf_counter()
+        dev_label, dev = dev, dev.split()[0]
+        with _plain_recurrences(plain):
+            state = init_decode_state(cfg, device_batch=1, cache_len=128,
+                                      device=dev)
+            logits, state = prefill(params, cfg, {"tokens": torch.tensor(
+                [prompt], device=dev)}, state)
+            toks, seen = [], []
+            for i in range(XLSTM_EXACT["decode"]):
+                seen.append(logits[0].float().cpu())
+                toks.append(int(logits[0].argmax()))
+                if i + 1 < XLSTM_EXACT["decode"]:
+                    logits, state, _, _ = decode_step(
+                        params, cfg, torch.tensor([toks[-1]], device=dev),
+                        state)
+        if dev_label == "cuda":
+            torch.cuda.synchronize()
+            counts = {k: wrappers[k].launches
+                      for k in ("slstm_recurrence", "mlstm_recurrence")}
+        runs[dev_label] = (toks, seen, time.perf_counter() - t0)
+    ct, cl, cs = runs["cuda"]
+    texts = []
+    for other in ("cpu", "cuda plain"):
+        pt, pl, ps = runs[other]
+        worst, parted = 0.0, None
+        for i, (a, b) in enumerate(zip(cl, pl)):
+            worst = max(worst, float((a - b).abs().max())
+                        / float(b.abs().max()))
+            if ct[i] != pt[i]:
+                top2 = torch.topk(b, 2).values
+                gap = float(top2[0] - top2[1])
+                if gap > 2 * logit_ulp(torch.float32, float(top2[0])):
+                    fail(f"xlstm-125m fp32: the kernels' greedy token "
+                         f"{ct[i]} parts from {other}'s {pt[i]} at step {i} "
+                         f"(top-2 gap {gap:.3e})")
+                parted = (i, gap)
+                break
+        texts.append(f"against {other}: tokens {pt}, worst |diff| / max "
+                     f"|logit| {worst:.3e}" + (
+                         f", parted at a tie at step {parted[0]} (gap "
+                         f"{parted[1]:.2e})" if parted else "")
+                     + f" ({ps:.1f} s)")
+        if worst > XLSTM_LOGIT_TOL:
+            fail(f"xlstm-125m fp32: the kernels' logits part from {other}'s "
+                 f"by {worst:.3e} of the largest")
+    log(f"  xlstm-125m fp32, {XLSTM_EXACT['prompt_len']} + "
+        f"{XLSTM_EXACT['decode']} tokens on the card's kernels: {ct} "
+        f"({cs:.1f} s); " + "; ".join(texts)
+        + f" (bar {XLSTM_LOGIT_TOL}); launches {counts}")
+    if min(counts.values()) <= 0:
+        fail(f"xlstm-125m fp32: a recurrence kernel did not run: {counts}")
+    del card_params, cpu_params
+    _free_device()
+
+
 def phase_exactness() -> None:
     """llama3.1-8b and the dense-FFN Jamba hybrid (16 layers, attention
     at 3 and 11), each reduced to d_model 256 in fp32: device, host and
@@ -1631,6 +2123,7 @@ def phase_exactness() -> None:
     for cfg in (llama, hybrid):
         _chat_identity(cfg, init_params(cfg, seed=0, device="cuda"), "cuda",
                        f"{cfg.name} {cfg.param_dtype} chat", whole=True)
+    _xlstm_exactness()
 
 
 # ---------------------------------------------------------------------------
@@ -1724,6 +2217,7 @@ def _traced_window(cfg, params, scfg, prompts, output_len, iters):
 
 
 def _kernel_wrappers() -> dict:
+    from repro_torch.kernels import xlstm
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.mamba_scan import (mamba_selective_scan_bwd_cuda,
                                                 mamba_selective_scan_cuda)
@@ -1733,7 +2227,9 @@ def _kernel_wrappers() -> dict:
             "prefill_attention": prefill_attention_cuda,
             "mamba_selective_scan": mamba_selective_scan_cuda,
             "prefill_attention_bwd": prefill_attention_bwd_cuda,
-            "mamba_selective_scan_bwd": mamba_selective_scan_bwd_cuda}
+            "mamba_selective_scan_bwd": mamba_selective_scan_bwd_cuda,
+            **{name: getattr(xlstm, wrapper) for name, (wrapper, *_)
+               in XLSTM_KERNELS.items()}}
 
 
 def _serve_published(cfg, traced_iters: int, traffic: dict = MAIN) -> dict:
@@ -3221,6 +3717,23 @@ def phase_serving_registry() -> dict:
     return total
 
 
+@contextlib.contextmanager
+def _plain_recurrences(on: bool):
+    """Inside the block (when ``on``), ``kernels.ops`` sends CUDA tensors
+    of the xLSTM recurrences to their plain loops instead of the kernels:
+    the path before this port had the kernels, for a comparison in the
+    same run."""
+    from repro_torch.kernels import ref, xlstm
+    saved = xlstm.slstm_scan_cuda, xlstm.mlstm_scan_cuda
+    if on:
+        xlstm.slstm_scan_cuda = ref.slstm_recurrence_ref
+        xlstm.mlstm_scan_cuda = ref.mlstm_recurrence_ref
+    try:
+        yield
+    finally:
+        xlstm.slstm_scan_cuda, xlstm.mlstm_scan_cuda = saved
+
+
 def phase_serving_xlstm() -> dict:
     """xlstm-125m at published width and depth (12 layers of mLSTM and
     sLSTM blocks, d_model 768, 4 heads, vocab 50304) in bf16, served
@@ -3230,9 +3743,10 @@ def phase_serving_xlstm() -> dict:
     two rows is dropped, and four conversations then never hit), then
     with the prefix cache, rebalancing and preemption off; the streams
     must be equal up to two-ULP ties.  At fp32 parameters a recurrent stack is not
-    chunk-boundary invariant (its conv window is bf16), hence bf16.  Then
-    a traced window of decode iterations: the recurrences are eager
-    loops over time, no kernel of the port runs."""
+    chunk-boundary invariant (its conv window is bf16), hence bf16.  Both
+    recurrences' kernels must launch.  Then a traced window of decode
+    iterations, and the same window with the plain loops patched in
+    for the kernels (the path before they existed), in turns."""
     import numpy as np
     from repro_torch.configs import get_config
     _free_device()
@@ -3247,6 +3761,8 @@ def phase_serving_xlstm() -> dict:
     launches = {name: fn.launches for name, fn in wrappers.items()}
     if eng.e.enable_offload or stats.host_tokens:
         fail("xlstm-125m: the host tier ran (it has no KV cache)")
+    if min(launches["slstm_recurrence"], launches["mlstm_recurrence"]) <= 0:
+        fail(f"xlstm-125m: a recurrence kernel did not run: {launches}")
     off, off_stats, off_wall, (off_watch, off_m), _, _ = chat_run(
         cfg, params, chat_config(cfg, "cuda", **FEATURES_OFF))
     counters = dict(prefill_chunks=stats.prefill_chunks,
@@ -3273,13 +3789,18 @@ def phase_serving_xlstm() -> dict:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, 128).tolist()
                for _ in range(CHAT["device_slots"])]
-    share, ms_iter, per_kernel, _ = _traced_window(
-        cfg, params, scfg, prompts, 32, 16)
-    log(f"  traced window (16 decode iterations, separate run): "
-        f"{ms_iter:.2f} ms per iteration, device busy {100 * share:.1f}% "
-        f"(idle {100 * (1 - share):.1f}%); top kernels:")
-    for key, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]:
-        log(f"    {ms:8.3f} ms/iter  {key[:100]}")
+    for label, plain in (("plain loops", True), ("kernels", False),
+                         ("kernels", False), ("plain loops", True)):
+        with _plain_recurrences(plain):
+            share, ms_iter, per_kernel, _ = _traced_window(
+                cfg, params, scfg, prompts, 32, 16)
+        log(f"  traced window, {label} (16 decode iterations, separate "
+            f"run): {ms_iter:.2f} ms per iteration, device busy "
+            f"{100 * share:.1f}% (idle {100 * (1 - share):.1f}%) [{CARD}]; "
+            "top kernels:")
+        for key, ms in sorted(per_kernel.items(),
+                              key=lambda kv: -kv[1])[:4]:
+            log(f"    {ms:8.3f} ms/iter  {key[:100]}")
     del params, eng
     _free_device()
     return launches
@@ -3920,6 +4441,8 @@ def phase_gateway() -> dict:
 # 8.75, 16.01, plain 11.53, 8.74, 16.57)
 TRAIN = dict(rows=2, seq=1024, steps=5, lr=1e-4, loss_chunk=256)
 TRAIN_HYBRID = dict(rows=1, seq=1024, steps=3)
+# xlstm-125m at published width and depth (12 layers, bf16)
+TRAIN_XLSTM = dict(rows=2, seq=1024, steps=3)
 # one loss.backward() in fp32 on the card (kernels) against the CPU (plain
 # versions): both models at published width cut to 2 layers, B 1 x T 128;
 # each leaf's gradient within GRAD_TOL of its largest |element| (fp32
@@ -3991,12 +4514,14 @@ def _train_run(cfg, rows: int, seq: int, steps: int) -> dict:
         fail(f"{cfg.name}: peak {peak:.1f} GiB; the optimizer's per-group "
              "update should hold it near 40")
     n_attn = cfg.num_attn_layers
-    n_mamba = sum(k == BlockKind.MAMBA
-                  for k in cfg.block_pattern) * cfg.num_groups
     need = {"prefill_attention": 2 * n_attn * steps,
-            "prefill_attention_bwd": n_attn * steps,
-            "mamba_selective_scan": 2 * n_mamba * steps,
-            "mamba_selective_scan_bwd": n_mamba * steps}
+            "prefill_attention_bwd": n_attn * steps}
+    for kind, name in ((BlockKind.MAMBA, "mamba_selective_scan"),
+                       (BlockKind.SLSTM, "slstm_recurrence"),
+                       (BlockKind.MLSTM, "mlstm_recurrence")):
+        n = sum(k == kind for k in cfg.block_pattern) * cfg.num_groups
+        need[name] = 2 * n * steps
+        need[name + "_bwd"] = n * steps
     for name, n in need.items():
         if counts[name] < n:
             fail(f"{cfg.name}: {name} launched {counts[name]} times in "
@@ -4070,7 +4595,7 @@ def _grad_check(cfg) -> None:
     from repro_torch.training.train_step import loss_grads, make_loss_fn
     from repro_torch.models.config import BlockKind
     kw = dict(param_dtype="float32", compute_dtype="float32")
-    if cfg.pattern_period > 1:   # the hybrid: a Mamba layer, then attention
+    if BlockKind.MAMBA in cfg.block_pattern:   # a Mamba layer, attention
         kw["block_pattern"] = (BlockKind.MAMBA, BlockKind.ATTN)
     f32 = _cut(cfg, GRAD_CHECK["layers"], **kw)
     params = init_params(f32, seed=0, device="cuda")
@@ -4106,8 +4631,13 @@ def _grad_check(cfg) -> None:
     if worst > GRAD_TOL or dl > 1e-4 * abs(float(m_cpu["loss"])):
         fail(f"{f32.name}: the card's gradients part from the CPU's "
              f"(worst {worst:.3e}, loss diff {dl:.3e})")
-    if counts["prefill_attention_bwd"] < 1 or (
-            f32.has_recurrent and counts["mamba_selective_scan_bwd"] < 1):
+    need = [name for kind, name in (
+        (BlockKind.ATTN, "prefill_attention_bwd"),
+        (BlockKind.MAMBA, "mamba_selective_scan_bwd"),
+        (BlockKind.SLSTM, "slstm_recurrence_bwd"),
+        (BlockKind.MLSTM, "mlstm_recurrence_bwd")) if kind in
+        f32.block_pattern]
+    if any(counts[name] < 1 for name in need):
         fail(f"{f32.name}: a backward kernel did not run: {counts}")
     del params, cpu, card, plain
     _free_device()
@@ -4202,13 +4732,16 @@ def phase_train() -> dict:
                        TRAIN["seq"], TRAIN["steps"])
     jamba = _train_run(hybrid_config(num_layers=8), TRAIN_HYBRID["rows"],
                        TRAIN_HYBRID["seq"], TRAIN_HYBRID["steps"])
-    for cfg in (get_config("llama3.1-8b"), hybrid_config(num_layers=8)):
+    xlstm = _train_run(get_config("xlstm-125m"), TRAIN_XLSTM["rows"],
+                       TRAIN_XLSTM["seq"], TRAIN_XLSTM["steps"])
+    for cfg in (get_config("llama3.1-8b"), hybrid_config(num_layers=8),
+                get_config("xlstm-125m")):
         _grad_check(cfg)
     _resume_check()
     _train_cli()
     log(f"  train phase in {time.perf_counter() - t_phase:.1f} s")
     return {name: llama["counts"][name] + jamba["counts"][name]
-            for name in llama["counts"]}
+            + xlstm["counts"][name] for name in llama["counts"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4220,7 +4753,11 @@ def phase_train() -> dict:
 DRYRUN_CELLS = (("llama3.1-8b", "decode_32k", False, "overlap"),
                 ("llama3.1-8b", "train_4k", True, "baseline"),
                 ("deepseek-moe-16b", "decode_32k", False, "baseline"),
-                ("jamba-1.5-large-398b", "long_500k", False, "baseline"))
+                ("jamba-1.5-large-398b", "long_500k", False, "baseline"),
+                ("xlstm-125m", "train_4k", False, "baseline"))
+# the recurrences' meta rules each xLSTM train cell must go through
+XLSTM_CALLS = ("slstm_recurrence", "slstm_recurrence_bwd",
+               "mlstm_recurrence", "mlstm_recurrence_bwd")
 # the memory check: llama3.1-8b cut to 2 layers at published width, one
 # train step at the train phase's B 2 x T 1024 on a (1, 1) mesh
 DRYRUN_MEMORY = dict(arch="llama3.1-8b", layers=2, rows=TRAIN["rows"],
@@ -4287,6 +4824,10 @@ def _check_dryrun_cell(cell, out_dir: Path, rc: int, err: str) -> None:
              f"the specs sum to {want}")
     if cell[1] == "train_4k" and cell[2] and coll["total_bytes"] <= 0:
         fail(f"dryrun {tag}: no collectives on the multi-pod train cell")
+    calls = rec["cost_analysis"]["kernel_calls"]
+    if cell[0] == "xlstm-125m" and any(calls.get(k, 0) <= 0
+                                       for k in XLSTM_CALLS):
+        fail(f"dryrun {tag}: kernel calls {calls} miss a recurrence")
     by_kind = ", ".join(f"{k} {v / 1e6:.1f}" for k, v in
                         sorted(coll["bytes_by_kind"].items()))
     log(f"  {tag}: {mem['total_per_device'] / 1e9:.3f} GB per rank "
@@ -4376,7 +4917,7 @@ EXAMPLES = ("quickstart", "offload_demo", "serve_chat", "train_tiny")
 
 
 def phase_dryrun_examples(dryrun: bool, examples: bool) -> dict:
-    """The dry-run's four cells (``python -m repro_torch.launch.dryrun``
+    """The dry-run's five cells (``python -m repro_torch.launch.dryrun``
     each, on the host's CPU), its memory check on the card (this script
     with ``--memory-check``: a process of its own, so nothing else
     allocates on the card while it measures) and the four examples
@@ -4559,7 +5100,7 @@ def main() -> int:
             "published width, gradients, checkpoint and resume, the CLI")
         launches["train"] = phase_train()
     if "dryrun" in phases or "examples" in phases:
-        log("== the dry-run (four cells on the production meshes over a "
+        log("== the dry-run (five cells on the production meshes over a "
             "fake process group, the memory check on the card) and the "
             "four examples, side by side")
         launches.update(phase_dryrun_examples("dryrun" in phases,

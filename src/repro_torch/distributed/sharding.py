@@ -129,6 +129,41 @@ def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], *sizes)
 
 
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, hd) -> (B, T, H * hd), ``split_last``'s inverse for a
+    tensor whose heads are whole on every rank (as the xLSTM recurrences
+    emit them): a DTensor is reshaped shard by shard, so its gradient
+    comes back to the heads' placements whatever the later products
+    leave it in (DTensor cannot split a dim sharded 16 ways into 4
+    heads)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:2], -1)
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    shape = (*x.shape[:2], x.shape[2] * x.shape[3])
+    return DTensor.from_local(local.reshape(*local.shape[:2], -1),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=shape,
+                              stride=(shape[1] * shape[2], shape[2], 1))
+
+
+def pointwise(fn, x: Any) -> Any:
+    """``fn`` (elementwise) of ``x``; on a DTensor it runs on the local
+    shard (pending sums completed first), for the ops DTensor has no
+    sharding rule for (``log_sigmoid``'s backward).  The placements are
+    kept."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def lookup_rows(table: Any, idx: Any) -> Any:
     """``table[idx]`` for a DTensor table (V, d) and ids (...) -> (..., d),
     vocab-parallel (Megatron's embedding): the table's rows stay

@@ -22,7 +22,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 KERNELS = ("decode_attention", "prefill_attention", "mamba_scan",
-           "prefill_attention_bwd", "mamba_scan_bwd")
+           "prefill_attention_bwd", "mamba_scan_bwd", "slstm_scan",
+           "slstm_scan_bwd", "mlstm_scan", "mlstm_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,5 @@
-"""Kernel entry points the model calls: attention and the selective scan.
+"""Kernel entry points the model calls: attention, the selective scan and
+the xLSTM recurrences.
 
 A tensor on the CPU takes the plain PyTorch version in ``ref``; any
 other device goes to the hand-written CUDA kernel, whose wrapper raises
@@ -28,6 +29,7 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import mamba_scan as _scan
 from repro_torch.kernels import prefill_attention as _pre
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import xlstm as _xl
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -119,3 +121,51 @@ def mamba_selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         return y, h_out.copy_(h)
     return _scan.mamba_selective_scan_cuda(dt, x, b, c, a_neg, d_skip, h0,
                                            lens, h_out)
+
+
+def _int_lens(lens: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if lens is None else lens.to(torch.int32).contiguous()
+
+
+def slstm_recurrence(gates_x: torch.Tensor, r: torch.Tensor,
+                     bias: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                     h: torch.Tensor, m: torch.Tensor,
+                     lens: Optional[torch.Tensor] = None):
+    """sLSTM over T: gates_x (B,T,4d) fp32, r (H,hd,4hd), bias (4d,), the
+    state c, n, h, m (B,H,hd) fp32, state and emitted h frozen past
+    ``lens[b]`` -> (hs (B,T,H,hd) fp32, c, n, h, m)."""
+    if _needs_grad(gates_x, r, bias, c, n, h, m):
+        if lens is not None:
+            raise ValueError("slstm_recurrence has no gradient with lens "
+                             "(no training path takes them)")
+        return _xl.SLSTMFn.apply(gates_x, r, bias, c, n, h, m)
+    if gates_x.device.type == "meta":
+        return _xl.meta_slstm(gates_x, r, c, n, h, m)
+    if gates_x.device.type == "cpu":
+        return _ref.slstm_recurrence_ref(gates_x, r, bias, c, n, h, m, lens)
+    return _xl.slstm_scan_cuda(
+        gates_x.contiguous(), r.contiguous(), bias.contiguous(),
+        *(x.contiguous() for x in (c, n, h, m)), _int_lens(lens))
+
+
+def mlstm_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     i_pre: torch.Tensor, f_pre: torch.Tensor,
+                     cmat: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                     lens: Optional[torch.Tensor] = None):
+    """mLSTM over T: q, k, v (B,T,H,hd) fp32, i_pre, f_pre (B,T,H) fp32,
+    the state cmat (B,H,hd,hd), n (B,H,hd), m (B,H) fp32, the state (not
+    the emitted h) frozen past ``lens[b]`` -> (hs (B,T,H,hd) fp32, cmat,
+    n, m)."""
+    if _needs_grad(q, k, v, i_pre, f_pre, cmat, n, m):
+        if lens is not None:
+            raise ValueError("mlstm_recurrence has no gradient with lens "
+                             "(no training path takes them)")
+        return _xl.MLSTMFn.apply(q, k, v, i_pre, f_pre, cmat, n, m)
+    if q.device.type == "meta":
+        return _xl.meta_mlstm(q, cmat, n, m)
+    if q.device.type == "cpu":
+        return _ref.mlstm_recurrence_ref(q, k, v, i_pre, f_pre, cmat, n, m,
+                                         lens)
+    return _xl.mlstm_scan_cuda(
+        *(x.contiguous() for x in (q, k, v, i_pre, f_pre, cmat, n, m)),
+        _int_lens(lens))

@@ -12,7 +12,7 @@ the forward's log-sum-exp, the scan runs its recurrence in reverse.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -185,3 +185,232 @@ def mamba_selective_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor,
     return (ddt.to(dt.dtype), dx.to(x.dtype), db.to(b.dtype), dc.to(c.dtype),
             da_neg.to(a_neg.dtype), dd_skip.to(d_skip.dtype),
             g.to(h0.dtype))
+
+
+# ---------------------------------------------------------------------------
+# xLSTM recurrences (the reference's ``lax.scan``s of ``models/ssm.py``)
+# ---------------------------------------------------------------------------
+
+
+def _keep(lens: Optional[torch.Tensor], t: int, ndim: int):
+    """(B, 1, ...) of rank ``ndim``: True where step t is a real token;
+    None when every token is real."""
+    if lens is None:
+        return None
+    return (t < lens).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _masked(keep: Optional[torch.Tensor], new: torch.Tensor,
+            old: torch.Tensor) -> torch.Tensor:
+    return new if keep is None else torch.where(keep, new, old)
+
+
+def _max_weights(a: torch.Tensor, b: torch.Tensor):
+    """The shares of ``maximum(a, b)``'s gradient that go to a and to b:
+    all to the larger, half each on a tie (JAX's and PyTorch's rule)."""
+    half = 0.5 * (a == b).float()
+    return (a > b).float() + half, (b > a).float() + half
+
+
+def slstm_recurrence_ref(gates_x: torch.Tensor, r: torch.Tensor,
+                         bias: torch.Tensor, c: torch.Tensor,
+                         n: torch.Tensor, h: torch.Tensor, m: torch.Tensor,
+                         lens: Optional[torch.Tensor] = None,
+                         save: bool = False):
+    """The sLSTM recurrence, one step per token.  gates_x (B, T, 4d) fp32
+    input contribution, head-major (head j's four gates i, f, z, o at
+    ``[4 hd j, 4 hd (j + 1))``); r (H, hd, 4hd) recurrent gates (applied
+    in fp32); bias (4d,) or (H, 4hd) fp32; the state c, n, h, m (B, H, hd)
+    fp32; lens (B,) or None (every token real).
+
+    Past a row's length its state, and the hidden state it emits, stay as
+    they were (the reference's scan emits the masked h).  Returns (hs
+    (B, T, H, hd) fp32, c, n, h, m); with ``save`` also (acts (B, T, H,
+    4hd): each step's gate pre-activations, and cs, ns, ms (B, T, H, hd):
+    the state after each step), what the backward reads."""
+    b, t = gates_x.shape[:2]
+    nh, hd = r.shape[0], r.shape[1]
+    r = r.float()
+    bias = bias.reshape(nh, 4 * hd)
+    if lens is not None:
+        lens = lens.to(gates_x.device)
+    hs, acts, cs, ns, ms = [], [], [], [], []
+    for i in range(t):
+        rec = torch.einsum("bhd,hde->bhe", h, r)
+        gx = gates_x[:, i].reshape(b, nh, 4 * hd) + rec + bias
+        i_t, f_t, z_t, o_t = gx.chunk(4, dim=-1)
+        m_new = torch.maximum(f_t + m, i_t)
+        i_g = torch.exp(i_t - m_new)
+        f_g = torch.exp(f_t + m - m_new)
+        c_new = f_g * c + i_g * torch.tanh(z_t)
+        n_new = f_g * n + i_g
+        h_new = torch.sigmoid(o_t) * c_new / torch.clamp(n_new.abs(),
+                                                         min=1e-6)
+        keep = _keep(lens, i, 3)
+        c, n, h, m = (_masked(keep, new, old) for new, old in
+                      ((c_new, c), (n_new, n), (h_new, h), (m_new, m)))
+        hs.append(h)
+        if save:
+            acts.append(gx)
+            cs.append(c)
+            ns.append(n)
+            ms.append(m)
+    out = (torch.stack(hs, dim=1), c, n, h, m)
+    if save:
+        out += tuple(torch.stack(v, dim=1) for v in (acts, cs, ns, ms))
+    return out
+
+
+def slstm_recurrence_bwd_ref(r: torch.Tensor, acts: torch.Tensor,
+                             cs: torch.Tensor, ns: torch.Tensor,
+                             ms: torch.Tensor, c0: torch.Tensor,
+                             n0: torch.Tensor, m0: torch.Tensor,
+                             dhs: torch.Tensor,
+                             dstate: Tuple[Optional[torch.Tensor], ...]
+                             = (None, None, None, None)):
+    """The reverse walk of ``slstm_recurrence_ref`` over every step (no
+    lens), from what its ``save`` form returns: r (H, hd, 4hd), acts
+    (B, T, H, 4hd), cs, ns, ms (B, T, H, hd), the initial c0, n0, m0, the
+    emitted h's gradient dhs (B, T, H, hd) and the final state's
+    (dc, dn, dh, dm) or None each.  Returns (dacts (B, T, H, 4hd): the
+    gradient of every step's gate pre-activations, which is gates_x's
+    and, summed, the bias's; dc0, dn0, dh0, dm0), fp32.  The recurrent
+    gates' gradient is sum_t h_{t-1} (x) dacts_t, one product after the
+    walk (``kernels.xlstm``).  Step t's carried dh picks up r . dacts_t,
+    and m's gradient follows ``maximum`` (half each on a tie)."""
+    b, t, nh, hd = cs.shape
+    r = r.float()
+    zero = torch.zeros((b, nh, hd), dtype=torch.float32, device=cs.device)
+    dc, dn, dh, dm = (zero if g is None else g.float() for g in dstate)
+    dacts = torch.empty((b, t, nh, 4 * hd), dtype=torch.float32,
+                        device=cs.device)
+    for i in reversed(range(t)):
+        c_prev, n_prev, m_prev = ((c0, n0, m0) if i == 0 else
+                                  (cs[:, i - 1], ns[:, i - 1], ms[:, i - 1]))
+        gi, gf, gz, go = acts[:, i].chunk(4, dim=-1)
+        a = gf + m_prev
+        m_new = torch.maximum(a, gi)
+        i_g = torch.exp(gi - m_new)
+        f_g = torch.exp(a - m_new)
+        tz, so = torch.tanh(gz), torch.sigmoid(go)
+        c_new, n_new = cs[:, i], ns[:, i]
+        den = torch.clamp(n_new.abs(), min=1e-6)
+        dh_new = dh + dhs[:, i]
+        dgo = dh_new * c_new / den * so * (1 - so)
+        dc_new = dc + dh_new * so / den
+        w_abs, _ = _max_weights(n_new.abs(), torch.full_like(n_new, 1e-6))
+        dn_new = dn - dh_new * so * c_new / (den * den) \
+            * torch.sign(n_new) * w_abs
+        df_g = dc_new * c_prev + dn_new * n_prev
+        di_g = dc_new * tz + dn_new
+        dgz = dc_new * i_g * (1 - tz * tz)
+        dm_tot = dm - di_g * i_g - df_g * f_g
+        w_a, w_i = _max_weights(a, gi)
+        dgi = di_g * i_g + dm_tot * w_i
+        dm = df_g * f_g + dm_tot * w_a
+        dg = torch.cat([dgi, dm, dgz, dgo], dim=-1)
+        dacts[:, i] = dg
+        dc, dn = dc_new * f_g, dn_new * f_g
+        dh = torch.einsum("bhe,hde->bhd", dg, r)
+    return dacts, dc, dn, dh, dm
+
+
+def mlstm_recurrence_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         i_pre: torch.Tensor, f_pre: torch.Tensor,
+                         cmat: torch.Tensor, n: torch.Tensor,
+                         m: torch.Tensor,
+                         lens: Optional[torch.Tensor] = None):
+    """The mLSTM recurrence, one step of the matrix memory per token.  q,
+    k, v (B, T, H, hd) fp32 (k already scaled by 1/sqrt(hd)); i_pre,
+    f_pre (B, T, H) fp32 (f_pre already through log-sigmoid); the state
+    cmat (B, H, hd, hd), n (B, H, hd), m (B, H) fp32; lens (B,) or None.
+
+    Each step emits h from the unmasked new memory; past a row's length
+    only the state is held (the reference masks the state alone).
+    Returns (hs (B, T, H, hd) fp32, cmat, n, m)."""
+    t = q.shape[1]
+    if lens is not None:
+        lens = lens.to(q.device)
+    hs = []
+    for i in range(t):
+        qi, ki, vi = q[:, i], k[:, i], v[:, i]                    # (B,H,hd)
+        m_new = torch.maximum(f_pre[:, i] + m, i_pre[:, i])       # (B,H)
+        i_g = torch.exp(i_pre[:, i] - m_new)
+        f_g = torch.exp(f_pre[:, i] + m - m_new)
+        kv = vi[..., :, None] * ki[..., None, :]                 # (B,H,hd,hd)
+        c_new = f_g[..., None, None] * cmat + i_g[..., None, None] * kv
+        n_new = f_g[..., None] * n + i_g[..., None] * ki
+        num = torch.einsum("bhvk,bhk->bhv", c_new, qi)
+        den = torch.clamp(torch.einsum("bhk,bhk->bh", n_new, qi).abs(),
+                          min=1.0)[..., None]
+        hs.append(num / den)
+        cmat = _masked(_keep(lens, i, 4), c_new, cmat)
+        n = _masked(_keep(lens, i, 3), n_new, n)
+        m = _masked(_keep(lens, i, 2), m_new, m)
+    return torch.stack(hs, dim=1), cmat, n, m
+
+
+def mlstm_recurrence_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, i_pre: torch.Tensor,
+                             f_pre: torch.Tensor, cmat0: torch.Tensor,
+                             n0: torch.Tensor, m0: torch.Tensor,
+                             hs: torch.Tensor, dhs: torch.Tensor,
+                             dstate: Tuple[Optional[torch.Tensor], ...]
+                             = (None, None, None)):
+    """Gradients of ``mlstm_recurrence_ref`` over every step (no lens)
+    given the emitted h's (``hs``) gradient dhs (B, T, H, hd) and the
+    final state's (dcmat, dn, dm) or None each: (dq, dk, dv, di, df,
+    dcmat0, dn0, dm0), fp32.  The memory before each step is recomputed
+    by a forward loop and walked in reverse.  With den = max(|n . q|, 1)
+    and h = C q / den, den's gradient is -sum(dh h) / den (taken from
+    the emitted h, as the kernel takes it); m's follows ``maximum``."""
+    b, t, nh, hd = q.shape
+    cmat, n, m = cmat0.float(), n0.float(), m0.float()
+    before = []
+    for i in range(t):
+        before.append((cmat, n, m))
+        m_new = torch.maximum(f_pre[:, i] + m, i_pre[:, i])
+        i_g = torch.exp(i_pre[:, i] - m_new)
+        f_g = torch.exp(f_pre[:, i] + m - m_new)
+        kv = v[:, i, ..., :, None] * k[:, i, ..., None, :]
+        cmat = f_g[..., None, None] * cmat + i_g[..., None, None] * kv
+        n = f_g[..., None] * n + i_g[..., None] * k[:, i]
+        m = m_new
+    dcmat, dn, dm = (torch.zeros_like(s) if g is None else g.float()
+                     for s, g in zip((cmat, n, m), dstate))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di, df = torch.empty_like(i_pre), torch.empty_like(f_pre)
+    for i in reversed(range(t)):
+        c_prev, n_prev, m_prev = before[i]
+        qi, ki, vi = q[:, i], k[:, i], v[:, i]
+        a = f_pre[:, i] + m_prev
+        m_new = torch.maximum(a, i_pre[:, i])
+        i_g = torch.exp(i_pre[:, i] - m_new)
+        f_g = torch.exp(a - m_new)
+        kv = vi[..., :, None] * ki[..., None, :]
+        c_new = f_g[..., None, None] * c_prev + i_g[..., None, None] * kv
+        n_new = f_g[..., None] * n_prev + i_g[..., None] * ki
+        s = torch.einsum("bhk,bhk->bh", n_new, qi)
+        den = torch.clamp(s.abs(), min=1.0)
+        dh = dhs[:, i]
+        dnum = dh / den[..., None]
+        dden = -(dh * hs[:, i]).sum(-1) / den
+        w_abs, _ = _max_weights(s.abs(), torch.ones_like(s))
+        ds = dden * torch.sign(s) * w_abs
+        dc_new = dcmat + dnum[..., :, None] * qi[..., None, :]
+        dn_new = dn + ds[..., None] * qi
+        dq[:, i] = torch.einsum("bhvk,bhv->bhk", c_new, dnum) \
+            + ds[..., None] * n_new
+        rv = torch.einsum("bhvk,bhk->bhv", dc_new, ki)
+        df_g = (dc_new * c_prev).sum((-2, -1)) + (dn_new * n_prev).sum(-1)
+        di_g = (rv * vi).sum(-1) + (dn_new * ki).sum(-1)
+        dv[:, i] = i_g[..., None] * rv
+        dk[:, i] = i_g[..., None] * (
+            torch.einsum("bhvk,bhv->bhk", dc_new, vi) + dn_new)
+        dm_tot = dm - di_g * i_g - df_g * f_g
+        w_a, w_i = _max_weights(a, i_pre[:, i])
+        di[:, i] = di_g * i_g + dm_tot * w_i
+        dm = df_g * f_g + dm_tot * w_a
+        df[:, i] = dm
+        dcmat, dn = f_g[..., None, None] * dc_new, f_g[..., None] * dn_new
+    return dq, dk, dv, di, df, dcmat, dn, dm

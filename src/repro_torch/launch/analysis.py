@@ -322,6 +322,56 @@ def _attn_pairs(b: int, t: int, s: int, causal: bool) -> int:
     return b * (t * (t + 1) // 2 if causal else t * s)
 
 
+# The xLSTM recurrences' arithmetic, as the function needs it (not as a
+# kernel's design may repeat it).  sLSTM, beyond its product with R: per
+# unit and step of the update (gate sums, stabiliser, exp, tanh, sigmoid,
+# cell, normaliser, h) and of its reverse walk.  mLSTM, per element of
+# the matrix memory and step: forward f C + (i v) k (3) and the read-out
+# C q (2); backward the memory rebuilt once (3), dC += dnum q (2),
+# C^T dnum (2), <dC, C_prev> (2), dC k (2), dC^T v (2) and f dC (1).
+# Per element of its vectors and step: i v (1), n (3), n . q (2), h (1)
+# forward, and four times that backward.
+SLSTM_POINT_FLOPS = 26
+SLSTM_BWD_POINT_FLOPS = 50
+MLSTM_CELL_FLOPS = 5
+MLSTM_BWD_CELL_FLOPS = 14
+MLSTM_VEC_FLOPS = 7
+
+
+def xlstm_costs(name: str, a) -> Tuple[float, float]:
+    """(flops, bytes) of one xLSTM recurrence call at the shapes its meta
+    rule records: each input read once, each output written once."""
+    if name.startswith("slstm"):
+        b, t, four_d = a["gates"]
+        _, nh, hd = a["state"]
+        d = four_d // 4
+        r_bytes = nh * hd * 4 * hd * torch.empty(
+            (), dtype=a["dtype"]).element_size()
+        if name == "slstm_recurrence":
+            flops = 2.0 * b * t * nh * hd * 4 * hd \
+                + SLSTM_POINT_FLOPS * b * t * nh * hd
+            nbytes = (4.0 * b * t * four_d + r_bytes + 4 * four_d
+                      + 2 * 4 * 4 * b * d + 4 * b * t * d + 4 * b)
+            if a.get("save"):
+                nbytes += 4.0 * b * t * four_d + 3 * 4 * b * t * d
+            return flops, nbytes
+        flops = 2.0 * b * t * nh * hd * 4 * hd \
+            + SLSTM_BWD_POINT_FLOPS * b * t * nh * hd
+        nbytes = (2 * 4.0 * b * t * four_d + 4 * 4 * b * t * d + r_bytes
+                  + (3 + 4 + 4) * 4 * b * d)
+        return flops, nbytes
+    b, t, nh, hd = a["q"]
+    state = 4.0 * b * nh * (hd * hd + hd + 1)
+    seq, gates = 4.0 * b * t * nh * hd, 4.0 * b * t * nh
+    if name == "mlstm_recurrence":
+        flops = b * t * nh * (MLSTM_CELL_FLOPS * hd * hd
+                              + MLSTM_VEC_FLOPS * hd)
+        return float(flops), 4 * seq + 2 * gates + 2 * state + 4 * b
+    flops = b * t * nh * (MLSTM_BWD_CELL_FLOPS * hd * hd
+                          + 4 * MLSTM_VEC_FLOPS * hd)
+    return float(flops), 8 * seq + 4 * gates + 3 * state
+
+
 def kernel_costs(calls) -> Tuple[float, float]:
     """(flops, bytes) of the kernel calls ``kernels.ops.record_meta_calls``
     collected, each at the shapes it records (a rank's local shapes): a
@@ -360,6 +410,11 @@ def kernel_costs(calls) -> Tuple[float, float]:
             flops += 14.0 * b * t * i * n
             nbytes += (5.0 * b * t * i * 4 + 4 * b * t * n * 4
                        + 2 * (i * n * 4 + i * 4 + b * i * n * 4))
+        elif name in ("slstm_recurrence", "slstm_recurrence_bwd",
+                      "mlstm_recurrence", "mlstm_recurrence_bwd"):
+            f, nb = xlstm_costs(name, a)
+            flops += f
+            nbytes += nb
         else:
             raise KeyError(name)
     return flops, nbytes

@@ -53,7 +53,7 @@ from repro_torch.launch import analysis, shapes
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import abstract_params, decode_step, prefill
 from repro_torch.models import forward_train
-from repro_torch.models.config import BlockKind, ModelConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.training import (TrainConfig, init_train_state,
                                   make_optimizer, make_train_step)
 
@@ -297,13 +297,6 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         record["skipped"] = skip
         return record
 
-    if shape.kind != "decode" and any(
-            k in (BlockKind.SLSTM, BlockKind.MLSTM) for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: the sLSTM/mLSTM recurrences are eager loops over "
-            f"T ({shape.seq_len} steps a layer here, where the reference "
-            "has a lax.scan), too many DTensor ops to trace; decode (T 1) "
-            "traces")
     mesh = mesh if mesh is not None else make_production_mesh(
         multi_pod=multi_pod)
     chips = mesh.mesh.numel()

@@ -11,11 +11,10 @@ Port of ``repro/models/ssm.py``.  Every block has the same contract:
     resuming a chunked prefill from its carried state
 
 ``x`` is (B, T, d_model); decode is the same block at T = 1.  The Mamba
-selective scan runs in ``kernels.ops.mamba_selective_scan`` (the
-hand-written CUDA kernel on the card, its plain loop on the CPU), where
-the reference runs a ``lax.scan``.  The xLSTM recurrences have no kernel
-in either package: the reference runs them as ``lax.scan``s, the port as
-Python loops over time of PyTorch ops.
+selective scan runs in ``kernels.ops.mamba_selective_scan`` and the
+sLSTM / mLSTM recurrences in ``kernels.ops.slstm_recurrence`` /
+``mlstm_recurrence`` (hand-written CUDA kernels on the card, their plain
+loops on the CPU), where the reference runs ``lax.scan``s.
 
 Length-masked scan: ``valid_lens`` (B,) int32 counts the real tokens of
 each row in this call.  Every block freezes a row's carry past its
@@ -40,7 +39,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, split_last
+from repro_torch.distributed.sharding import (as_dtensor, constrain,
+                                              is_dtensor, merge_heads,
+                                              pointwise, split_last)
 from repro_torch.kernels import ops
 from repro_torch.models.config import MambaConfig
 from repro_torch.models.layers import Params, dense_init_
@@ -287,51 +288,42 @@ def mlstm_init_state(d_model: int, num_heads: int, batch: int, *,
                          dtype=torch.bfloat16, device=device))
 
 
-def _keep(valid_lens: Optional[torch.Tensor], t: int, ndim: int):
-    """(B, 1, ...) of rank ``ndim``: True where step t is a real token;
-    None when every token is real."""
-    if valid_lens is None:
-        return None
-    return (t < valid_lens).reshape((-1,) + (1,) * (ndim - 1))
-
-
-def _masked(keep: Optional[torch.Tensor], new: torch.Tensor,
-            old: torch.Tensor) -> torch.Tensor:
-    return new if keep is None else torch.where(keep, new, old)
+def _whole_heads(x: Optional[torch.Tensor],
+                 like: torch.Tensor) -> Optional[torch.Tensor]:
+    """A recurrence's input (or state, or lens) held as the kernels take
+    it under a mesh: split over the batch's axes only, whole over every
+    other dim (4 heads cannot split over a 16-way "model" axis), so the
+    trace counts the collective a sharded run pays.  A plain tensor
+    beside DTensor inputs (a block's fresh zero state) is taken as
+    replicated first, which costs no collective.  A no-op off a mesh."""
+    if x is None:
+        return x
+    if is_dtensor(like) and not is_dtensor(x):
+        x = as_dtensor(x, like.device_mesh)
+    return constrain(x, "batch", *(None,) * (x.dim() - 1))
 
 
 def slstm_forward(params: Params, x: torch.Tensor, state: SLSTMState,
                   num_heads: int,
                   valid_lens: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, SLSTMState]:
-    """x: (B, T, d) -> (y (B, T, d), new_state), one step per token.
-    Past a row's ``valid_lens`` its state, and the hidden state it
-    outputs, stay as they were (the reference's scan emits the masked
-    ``h``).  The state passed in is not modified."""
+    """x: (B, T, d) -> (y (B, T, d), new_state): the input gates, the
+    recurrence (``ops.slstm_recurrence``: one kernel launch on the card),
+    the output projection.  Past a row's ``valid_lens`` its state, and
+    the hidden state it outputs, stay as they were (the reference's scan
+    emits the masked ``h``).  The state passed in is not modified."""
     b, t, d = x.shape
-    hd = d // num_heads
-    gates_all = (x @ params["w_gates"]).float()                  # (B,T,4d)
-    r = params["r_gates"].float()                                 # (H,hd,4hd)
-    bias = params["b_gates"].reshape(num_heads, 4 * hd)
+    # the projections are held batch-sharded and replicated over "model"
+    # under a mesh (the recurrence takes whole heads): left free, DTensor
+    # shards T over "model" and its plans over the strided shards take
+    # seconds each on the (2, 16, 16) mesh
+    gates_all = constrain(x @ params["w_gates"], "batch", "seq",
+                          None).float()                          # (B,T,4d)
     lens = None if valid_lens is None else valid_lens.to(x.device)
-    c, n, h, m = state
-    hs = []
-    for i in range(t):
-        rec = torch.einsum("bhd,hde->bhe", h, r)
-        gx = split_last(gates_all[:, i], num_heads, 4 * hd) + rec + bias
-        i_t, f_t, z_t, o_t = gx.chunk(4, dim=-1)
-        m_new = torch.maximum(f_t + m, i_t)
-        i_g = torch.exp(i_t - m_new)
-        f_g = torch.exp(f_t + m - m_new)
-        c_new = f_g * c + i_g * torch.tanh(z_t)
-        n_new = f_g * n + i_g
-        h_new = torch.sigmoid(o_t) * c_new / torch.clamp(n_new.abs(),
-                                                         min=1e-6)
-        keep = _keep(lens, i, 3)
-        c, n, h, m = (_masked(keep, new, old) for new, old in
-                      ((c_new, c), (n_new, n), (h_new, h), (m_new, m)))
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
+    c, n, h, m, lens = (_whole_heads(v, gates_all) for v in (*state, lens))
+    hs, c, n, h, m = ops.slstm_recurrence(
+        gates_all, params["r_gates"], params["b_gates"], c, n, h, m, lens)
+    y = merge_heads(hs).to(x.dtype)
     return y @ params["down_proj"], SLSTMState(c=c, n=n, h=h, m=m)
 
 
@@ -362,39 +354,34 @@ def mlstm_forward(params: Params, x: torch.Tensor, state: MLSTMState,
                   valid_lens: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, MLSTMState]:
     """The mLSTM block body (the caller adds the residual): x (B, T, d)
-    -> (y (B, T, d), new_state), one step of the matrix memory per token.
-    Past a row's ``valid_lens`` its state stays as it was.  The state
-    passed in is not modified."""
+    -> (y (B, T, d), new_state): the up projection, the conv, q/k/v and
+    the gates, the recurrence (``ops.mlstm_recurrence``: one kernel
+    launch on the card), the SiLU gate and the down projection.  Past a
+    row's ``valid_lens`` its state stays as it was (the emitted h is
+    still taken from the unmasked memory, as the reference's).  The
+    state passed in is not modified."""
     b, t, _ = x.shape
-    xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)             # (B,T,I)
+    # projections held as in ``slstm_forward``
+    xin, z = constrain(x @ params["in_proj"], "batch", "seq",
+                       None).chunk(2, dim=-1)                     # (B,T,I)
     inner = xin.shape[-1]
     hd = inner // num_heads
     lens = None if valid_lens is None else valid_lens.to(x.device)
     xc, new_conv = _mlstm_conv(params, xin, state.conv, lens)
-    q, k, v = (xc @ params["w_qkv"]).chunk(3, dim=-1)
+    q, k, v = constrain(xc @ params["w_qkv"], "batch", "seq",
+                        None).chunk(3, dim=-1)
     q = split_last(q, num_heads, hd).float()
     k = (split_last(k, num_heads, hd) / math.sqrt(hd)).float()
     v = split_last(v, num_heads, hd).float()
-    i_pre, f_pre = (xc.float() @ params["w_gates"]).chunk(2, dim=-1)
-    f_pre = F.logsigmoid(f_pre)             # log-sigmoid forget gate
-    cmat, n, m = state.cmat, state.n, state.m
-    hs = []
-    for i in range(t):
-        qi, ki, vi = q[:, i], k[:, i], v[:, i]                    # (B,H,hd)
-        m_new = torch.maximum(f_pre[:, i] + m, i_pre[:, i])       # (B,H)
-        i_g = torch.exp(i_pre[:, i] - m_new)
-        f_g = torch.exp(f_pre[:, i] + m - m_new)
-        kv = vi[..., :, None] * ki[..., None, :]                 # (B,H,hd,hd)
-        c_new = f_g[..., None, None] * cmat + i_g[..., None, None] * kv
-        n_new = f_g[..., None] * n + i_g[..., None] * ki
-        num = torch.einsum("bhvk,bhk->bhv", c_new, qi)
-        den = torch.clamp(torch.einsum("bhk,bhk->bh", n_new, qi).abs(),
-                          min=1.0)[..., None]
-        hs.append(num / den)
-        cmat = _masked(_keep(lens, i, 4), c_new, cmat)
-        n = _masked(_keep(lens, i, 3), n_new, n)
-        m = _masked(_keep(lens, i, 2), m_new, m)
-    h = torch.stack(hs, dim=1).reshape(b, t, inner).to(x.dtype)
+    i_pre, f_pre = constrain(xc.float() @ params["w_gates"], "batch", "seq",
+                             None).chunk(2, dim=-1)
+    f_pre = pointwise(F.logsigmoid, f_pre)  # log-sigmoid forget gate
+    q, k, v, i_pre, f_pre, cmat, n, m, lens = (
+        _whole_heads(a, q) for a in (q, k, v, i_pre, f_pre, state.cmat,
+                                     state.n, state.m, lens))
+    hs, cmat, n, m = ops.mlstm_recurrence(q, k, v, i_pre, f_pre, cmat, n, m,
+                                          lens)
+    h = merge_heads(hs).to(x.dtype)
     h = h * F.silu(z.float()).to(x.dtype)
     return h @ params["down_proj"], MLSTMState(
         cmat=cmat, n=n, m=m, conv=new_conv.to(state.conv.dtype))

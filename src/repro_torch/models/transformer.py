@@ -300,7 +300,7 @@ def _xlstm_block(p: Params, cfg: ModelConfig, kind: BlockKind,
                                   valid_lens)
     for dst, src in zip(st, new):
         dst[g].copy_(src)
-    return x + y
+    return _residual(x + y)
 
 
 def _stateless_group(group: Tuple[Params, ...], cfg: ModelConfig, g: int,
@@ -340,7 +340,7 @@ def _stateless_group(group: Tuple[Params, ...], cfg: ModelConfig, g: int,
             y, _ = _XLSTM_FORWARD[kind](p[kind.value],
                                         rmsnorm(p["ln1"], x, cfg.norm_eps),
                                         zero, cfg.num_heads)
-            x = x + y
+            x = _residual(x + y)
         loss = entry_aux[0] if entry_aux else torch.zeros_like(loss)
     return x, loss
 

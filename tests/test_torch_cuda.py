@@ -474,3 +474,125 @@ def test_scan_bwd_ragged_checkpoint_interval(gen, n):
         _rel_close(g, w, 1e-4)
     again = mamba_selective_scan_bwd_cuda(*args)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM recurrences (sLSTM and mLSTM, forward and backward)
+# ---------------------------------------------------------------------------
+
+
+def _slstm_inputs(gen, b, t, nh, hd, r_dtype):
+    d = nh * hd
+    gx = _randn(gen, (b, t, 4 * d), torch.float32)
+    r = (_randn(gen, (nh, hd, 4 * hd), torch.float32) / hd ** 0.5).to(r_dtype)
+    bias = 0.1 * _randn(gen, (4 * d,), torch.float32)
+    state = [_randn(gen, (b, nh, hd), torch.float32),
+             1.0 + _randn(gen, (b, nh, hd), torch.float32).abs(),
+             _randn(gen, (b, nh, hd), torch.float32),
+             _randn(gen, (b, nh, hd), torch.float32)]
+    return [gx, r, bias] + state
+
+
+def _mlstm_inputs(gen, b, t, nh, hd):
+    q, k, v = (_randn(gen, (b, t, nh, hd), torch.float32) for _ in range(3))
+    k = k / hd ** 0.5
+    i_pre = _randn(gen, (b, t, nh), torch.float32)
+    f_pre = torch.nn.functional.logsigmoid(
+        _randn(gen, (b, t, nh), torch.float32) + 2.0)
+    state = [0.3 * _randn(gen, (b, nh, hd, hd), torch.float32),
+             0.3 * _randn(gen, (b, nh, hd), torch.float32),
+             _randn(gen, (b, nh), torch.float32)]
+    return [q, k, v, i_pre, f_pre] + state
+
+
+def _close_to_max(got, want, tol):
+    scale = float(want.abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(scale, 1e-30), (err, scale)
+
+
+@pytest.mark.parametrize("t", [1, 37])
+@pytest.mark.parametrize("hd,r_dtype", [(16, torch.float32),
+                                        (32, torch.float32),
+                                        (192, torch.float32),
+                                        (192, torch.bfloat16)])
+def test_slstm_kernel_matches_plain_and_splits_bitwise(gen, t, hd, r_dtype):
+    from repro_torch.kernels.xlstm import slstm_scan_cuda
+    args = _slstm_inputs(gen, 3, t, 4, hd, r_dtype)
+    lens = torch.tensor([t, max(t // 2, 1), 0], dtype=torch.int32,
+                        device="cuda")
+    got = slstm_scan_cuda(*args, lens)
+    want = ref.slstm_recurrence_ref(*args, lens)
+    for g, w in zip(got, want):
+        _close_to_max(g, w, 1e-5)
+    for g, s0 in zip(got[1:], args[3:]):
+        assert torch.equal(g[2], s0[2])           # a row of length 0
+    if t > 1:
+        cut = t // 3
+        first = slstm_scan_cuda(args[0][:, :cut].contiguous(), *args[1:],
+                                torch.clamp(lens, max=cut))
+        second = slstm_scan_cuda(args[0][:, cut:].contiguous(), *args[1:3],
+                                 *first[1:], torch.clamp(lens - cut, min=0))
+        assert torch.equal(torch.cat([first[0], second[0]], 1), got[0])
+        for a, b in zip(second[1:], got[1:]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("t", [1, 37])
+@pytest.mark.parametrize("hd", [32, 64, 384])
+def test_mlstm_kernel_matches_plain_and_splits_bitwise(gen, t, hd):
+    from repro_torch.kernels.xlstm import mlstm_scan_cuda
+    args = _mlstm_inputs(gen, 3, t, 4, hd)
+    lens = torch.tensor([t, max(t // 2, 1), 0], dtype=torch.int32,
+                        device="cuda")
+    got = mlstm_scan_cuda(*args, lens)
+    want = ref.mlstm_recurrence_ref(*args, lens)
+    for g, w in zip(got, want):
+        _close_to_max(g, w, 1e-5)
+    for g, s0 in zip(got[1:], args[5:]):
+        assert torch.equal(g[2], s0[2])
+    if t > 1:
+        cut = t // 3
+        first = mlstm_scan_cuda(*[a[:, :cut].contiguous() for a in args[:5]],
+                                *args[5:], torch.clamp(lens, max=cut))
+        second = mlstm_scan_cuda(*[a[:, cut:].contiguous() for a in args[:5]],
+                                 *first[1:], torch.clamp(lens - cut, min=0))
+        assert torch.equal(torch.cat([first[0], second[0]], 1), got[0])
+        for a, b in zip(second[1:], got[1:]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("t", [1, 21])
+@pytest.mark.parametrize("hd,r_dtype", [(32, torch.float32),
+                                        (192, torch.bfloat16)])
+def test_slstm_bwd_kernel_matches_plain(gen, t, hd, r_dtype):
+    from repro_torch.kernels.xlstm import slstm_scan_bwd_cuda, slstm_scan_cuda
+    gx, r, bias, c, n, h, m = _slstm_inputs(gen, 2, t, 4, hd, r_dtype)
+    hs, _, _, _, _, acts, cs, ns, ms = slstm_scan_cuda(gx, r, bias, c, n, h,
+                                                       m, save=True)
+    dhs = _randn(gen, hs.shape, torch.float32)
+    dstate = tuple(_randn(gen, c.shape, torch.float32) for _ in range(4))
+    got = slstm_scan_bwd_cuda(r, acts, cs, ns, ms, c, n, m, dhs, dstate)
+    again = slstm_scan_bwd_cuda(r, acts, cs, ns, ms, c, n, m, dhs, dstate)
+    bsz, _, nh, _ = hs.shape
+    want = ref.slstm_recurrence_bwd_ref(
+        r, acts.reshape(bsz, t, nh, 4 * hd), cs, ns, ms, c, n, m, dhs, dstate)
+    for g, w, a in zip(got, want, again):
+        _close_to_max(g.reshape(w.shape), w, 1e-4)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("t", [1, 21, 40])
+@pytest.mark.parametrize("hd", [32, 384])
+def test_mlstm_bwd_kernel_matches_plain(gen, t, hd):
+    from repro_torch.kernels.xlstm import mlstm_scan_bwd_cuda, mlstm_scan_cuda
+    args = _mlstm_inputs(gen, 2, t, 4, hd)
+    hs = mlstm_scan_cuda(*args)[0]
+    dhs = _randn(gen, hs.shape, torch.float32)
+    dstate = tuple(_randn(gen, x.shape, torch.float32) for x in args[5:])
+    got = mlstm_scan_bwd_cuda(*args, hs, dhs, dstate)
+    again = mlstm_scan_bwd_cuda(*args, hs, dhs, dstate)
+    want = ref.mlstm_recurrence_bwd_ref(*args, hs, dhs, dstate)
+    for g, w, a in zip(got, want, again):
+        _close_to_max(g, w, 1e-4)
+        assert torch.equal(g, a)

@@ -481,9 +481,52 @@ def test_dryrun_xlstm_long_context_cell():
             + ref_spec_bytes(rm, [rtok], [rtspec]))
     assert rec["memory"]["argument_bytes"] == want
     check_analytic(rec, "xlstm-125m", "long_500k", 0.0)
-    # a span of xLSTM steps is refused by name, not traced for hours
-    with pytest.raises(NotImplementedError, match="eager loops over T"):
-        dryrun.dryrun_cell("xlstm-125m", "prefill_32k")
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("shape_name", ["prefill_32k", "train_4k"])
+def test_dryrun_xlstm_span_cells_trace(shape_name, mesh_name):
+    """xlstm-125m's prefill (32 x 32768) and train (256 x 4096) cells trace
+    as the reference's do: each recurrence one kernel call a layer (its
+    meta rule), the train step's remat running each forward twice; the
+    argument bytes are the reference's specs' sum."""
+    arch = "xlstm-125m"
+    rec = dryrun.dryrun_cell(arch, shape_name,
+                             multi_pod=mesh_name == "2x16x16")
+    assert "error" not in rec and "skipped" not in rec
+    rm = ref_mesh(mesh_name)
+    rcfg = ref_get_config(arch)
+    spec = ref_shapes.SHAPES[shape_name]
+    calls = rec["cost_analysis"]["kernel_calls"]
+    if shape_name == "train_4k":
+        rparams = ref_abstract_params(rcfg)
+        ropt = ref_make_optimizer("adamw", moment_dtype="bfloat16")
+        rstate = jax.eval_shape(lambda p: ref_init_train_state(
+            rcfg, RefTrainConfig(remat=True), ropt, p), rparams)
+        rbatch, rbspec = ref_shapes.train_batch_specs(rcfg, spec, rm)
+        want = (ref_spec_bytes(rm, rstate,
+                               ref_sharding.param_shardings(rm, rstate))
+                + ref_spec_bytes(rm, rbatch, rbspec))
+        assert calls == {"mlstm_recurrence": 12, "slstm_recurrence": 12,
+                         "mlstm_recurrence_bwd": 6,
+                         "slstm_recurrence_bwd": 6}
+    else:
+        rparams = both_params(arch)[1]
+        rules = ref_sharding.rules_for_mesh(rm, "serve")
+        rin, rinspec = ref_shapes.prefill_input_specs(rcfg, spec, rm)
+        rst = ref_shapes.abstract_state(rcfg, device_batch=spec.global_batch,
+                                        host_batch=0,
+                                        cache_len=spec.seq_len)
+        want = (ref_spec_bytes(rm, rparams,
+                               ref_sharding.param_shardings(rm, rparams,
+                                                            rules))
+                + ref_spec_bytes(rm, rin, rinspec)
+                + ref_spec_bytes(rm, rst, ref_shapes.state_specs(
+                    rcfg, rst, rm, long_context=False, for_prefill=True)))
+        assert calls == {"mlstm_recurrence": 6, "slstm_recurrence": 6}
+    assert rec["memory"]["argument_bytes"] == want
+    assert rec["cost_analysis"]["kernel_flops"] > 0
+    check_analytic(rec, arch, shape_name, 0.0)
 
 
 def test_dryrun_train_cell_on_production_and_local_meshes():

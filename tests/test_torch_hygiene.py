@@ -41,15 +41,17 @@ def test_port_files_exist():
                    "training/checkpoint", "core/tree", "launch/train",
                    "launch/shapes", "launch/analysis", "launch/mesh",
                    "launch/dryrun", "distributed/sharding",
-                   "kernels/launches"):
+                   "kernels/launches", "kernels/xlstm"):
         assert f"src/repro_torch/{module}.py" in names
     assert len(names) > 20
     for example in ("quickstart", "offload_demo", "serve_chat",
                     "train_tiny"):
         assert f"examples/torch_{example}.py" in names
     # the import check below runs over every file found here, training/
-    # and launch/train.py among them; the backward kernels' sources
-    for source in ("prefill_attention_bwd", "mamba_scan_bwd"):
+    # and launch/train.py among them; the backward kernels' sources and
+    # the xLSTM recurrences'
+    for source in ("prefill_attention_bwd", "mamba_scan_bwd", "slstm_scan",
+                   "slstm_scan_bwd", "mlstm_scan", "mlstm_scan_bwd"):
         assert (ROOT / "src" / "repro_torch" / "csrc"
                 / f"{source}.cu").is_file()
 
