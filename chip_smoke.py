@@ -20,8 +20,11 @@ Phases (any failure exits non-zero):
      4 heads of 192, mLSTM 4 of 384): the chat chunk (B 2 x T 64) and
      decode (B 2 x T 1) at 1e-5 of the largest value, frozen rows and a
      split in T bitwise, one launch per call, one long call (T 4096;
-     the sLSTM against a float64 loop), both backward kernels at the
-     training shape (B 2 x T 1024) at 1e-4 and bitwise on repeat;
+     the sLSTM against a float64 loop), both forward kernels timed at
+     the training shape (B 2 x T 1024) with the time a step, both
+     backward kernels there at 1e-4 (the mLSTM's against its plain
+     version in float64) and bitwise on repeat, the mLSTM backward's six
+     kernels by the profiler beside the call by events;
   3. profile: ``OfflineProfiler`` on llama3.1-8b at published width over
      the startup grid -- every table point finite and positive, both
      attention kernels launched, the profile saved under chiprun_out/ and
@@ -49,7 +52,7 @@ Phases (any failure exits non-zero):
      host resident: streams held to the control's, the pool whole;
   8. serving-chunked: the reference's default configuration (chunked
      prefill beside decode, the prefix cache on both tiers, migration,
-     preemption) on multi-turn chat, llama3.1-8b (16 layers) and the
+     preemption) on multi-turn chat, llama3.1-8b (8 layers) and the
      8-layer Jamba at published width: every mechanism must fire, the
      streams must equal a run with the prefix cache and tier moves off (a
      stream may part only at a top-2 tie of two logit ULPs), and the pool
@@ -92,7 +95,7 @@ Phases (any failure exits non-zero):
      ``--arch deepseek-moe-16b --perf-model analytic --host-kv-dtype
      int8``, with ``--arch xlstm-125m --perf-model analytic`` and with
      ``--arch paligemma-3b``;
- 15. gateway: llama3.1-8b at published width (bf16, cut to 16 layers) served
+ 15. gateway: llama3.1-8b at published width (bf16, cut to 8 layers) served
      by two ``InferenceServer`` replicas sharing one copy of the weights
      behind the HTTP/SSE gateway (the reference's default path on 2 device
      + 2 host slots each, one measured profile that every replica build
@@ -115,7 +118,8 @@ Phases (any failure exits non-zero):
      every loss and grad norm finite, the last loss below the first,
      step time, tokens/s, peak memory and launches (each attention,
      Mamba, sLSTM and mLSTM layer's forward twice a step, its backward
-     kernel once); one fp32 backward of the three models cut to 2 layers
+     kernel once) and a profiled step's split by kernel (the xLSTM
+     recurrences summed); one fp32 backward of the three models cut to 2 layers
      (Jamba: a Mamba and its attention layer) on the card against the
      CPU's plain versions, leaf by leaf; 2 steps,
      checkpoint, restore into a fresh state and a 3rd step bitwise the
@@ -236,7 +240,7 @@ MOE_SERVE = dict(heads=16, kv_heads=16, head_dim=128, layers=28,
                  compress_after=0.01)
 CHAT = dict(conversations=4, turns=3, system_len=128, user_len=48,
             output_len=16, urgent_len=400, urgent_output=96, device_slots=2,
-            host_slots=4, cache_len=512, page_size=32, llama_layers=16,
+            host_slots=4, cache_len=512, page_size=32, llama_layers=8,
             compress_after=0.01)
 # the reference registry's published head geometries that the main path
 # never reaches, as (H, KV, D): group 6, group 16, head_dim 160 and 256
@@ -1584,6 +1588,13 @@ XLSTM = dict(heads=4, slstm_hd=192, mlstm_hd=384, rows=2, chunk=64,
 XLSTM_TOL = 1e-5        # |kernel - plain| over the largest |value|
 XLSTM_LONG_TOL = 1e-4   # the mLSTM at T 4096 (the measured ratio printed)
 XLSTM_BWD_TOL = 1e-4    # of each gradient's largest |element|
+# The mLSTM backward kernel is held against its plain version run in
+# float64 on the same (fp32) values: the mLSTM's gradient jumps where
+# |n . q| crosses the clamp at 1, and at B 2 x T 1024 one step's |n . q|
+# is 0.99999999698 in float64, 1.0000004768 by the plain fp32 walk and
+# <= 1 by the kernel (one H100 80GB HBM3, 700.00 W): the fp32 walk alone
+# takes the far side there and parts from both by 0.61 of the largest
+# dq.  The fp32 plain version's difference is printed beside.
 # The sLSTM at T 4096 is held against a float64 loop instead: its
 # stabiliser m drifts up to ~2000 over such a call, where fp32 rounds
 # f + m to ~1e-4, so any two fp32 versions part by ~1e-3 of the largest
@@ -1604,14 +1615,16 @@ XLSTM_KERNELS = {
     "slstm_recurrence_bwd": ("slstm_scan_bwd_cuda", "slstm_bwd_kernel",
                              "src/repro_torch/csrc/slstm_scan_bwd.cu",
                              "src/repro/models/ssm.py:246"),
-    "mlstm_recurrence_bwd": ("mlstm_scan_bwd_cuda", "mlstm_bwd_walk",
+    "mlstm_recurrence_bwd": ("mlstm_scan_bwd_cuda", "mlstm_bwd_intra",
                              "src/repro_torch/csrc/mlstm_scan_bwd.cu",
                              "src/repro/models/ssm.py:369"),
 }
-# the mLSTM backward's call is a sequence of four kernels, its launch
-# count counts calls: h . dh, the reverse walk, the partials' reduction
-# and the gates' serial pass
-MLSTM_BWD_PARTS = ("mlstm_bwd_hdot", "mlstm_bwd_walk", "mlstm_bwd_reduce",
+# the mLSTM backward's call is a sequence of six kernels (chunkwise-
+# parallel), its launch count counts calls: the stabiliser's scan, the
+# boundary memories, the per-chunk products, the carried gradients, the
+# intra-chunk gradients and the gates' chain
+MLSTM_BWD_PARTS = ("mlstm_bwd_gates_fwd", "mlstm_bwd_bounds",
+                   "mlstm_bwd_chunk", "mlstm_bwd_carry", "mlstm_bwd_intra",
                    "mlstm_bwd_gates")
 
 
@@ -1814,6 +1827,14 @@ def check_xlstm(gen) -> dict:
     return errs
 
 
+def _to_f64(args):
+    """``args`` with every tensor (also inside a tuple) in float64."""
+    import torch
+    return tuple(_to_f64(a) if isinstance(a, tuple) else
+                 a.double() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
 def _xlstm_bwd_case(gen, kind):
     """The backward kernel's inputs at the train phase's shape: the saved
     forward (sLSTM) or the forward's inputs and h (mLSTM), dhs and the
@@ -1858,11 +1879,14 @@ def _xlstm_record(name, errs, ms, plain_ms, b, t, shape) -> dict:
 
 def bench_xlstm(gen, errs) -> dict:
     """Device time of each forward kernel and its plain version at the
-    chat chunk (the records), at decode and at the long call (events,
-    printed); each backward kernel against its plain version at the
-    train shape (XLSTM_BWD_TOL of each gradient's max, bitwise on
-    repeat) and timed there (events; the plain version once).  No
-    PyTorch call computes these recurrences (library: none)."""
+    chat chunk (the records), at decode, at the long call and at the
+    train shape (events, printed, with the time a step); each backward
+    kernel against its plain version (the mLSTM's in float64) at the
+    train shape
+    (XLSTM_BWD_TOL of each gradient's max, bitwise on repeat) and timed
+    there (events; the plain version once, in fp32), the mLSTM's also by
+    the profiler, kernel by kernel.  No PyTorch call computes these
+    recurrences (library: none)."""
     import torch
     from repro_torch.kernels import ref, xlstm
     records = {}
@@ -1893,8 +1917,20 @@ def bench_xlstm(gen, errs) -> dict:
         rec["decode"] = {"ms": dms, "plain_ms": dpl,
                          "bound_ms": dbd["bound_ms"]}
         rec["long"] = {"ms": lms, "bound_ms": lbd["bound_ms"]}
+        # the train phase's shape: the sLSTM saving what its backward reads
+        tb, tt = XLSTM["train_rows"], XLSTM["train_seq"]
+        tr = case(gen, tb, tt)
+        kw = {"save": True} if kind == "slstm" else {}
+        tms = time_ms(lambda: kernel(*tr, **kw), warmup=1, reps=3, rounds=3)
+        tbd = xlstm_bound(name, tb, tt)
+        log(f"  {name} train B{tb} T{tt} (events): kernel {tms:.5f} ms, "
+            f"bound {tbd['bound_ms']:.5f} ms ({tbd['bound_by']}); a step "
+            f"{1e3 * kms / chunk:.3f} us at T {chunk}, "
+            f"{1e3 * tms / tt:.3f} us at T {tt} [{CARD}]")
+        rec["train"] = {"ms": tms, "bound_ms": tbd["bound_ms"],
+                        "bound_by": tbd["bound_by"]}
         records[name] = rec
-        del args, dec, ld
+        del args, dec, ld, tr
     b, t = XLSTM["train_rows"], XLSTM["train_seq"]
     for kind in ("slstm", "mlstm"):
         name = f"{kind}_recurrence_bwd"
@@ -1904,33 +1940,46 @@ def bench_xlstm(gen, errs) -> dict:
         got = kernel(*kargs)
         again = kernel(*kargs)
         t0 = time.perf_counter()
-        want = plain(*pargs)
+        want32 = plain(*pargs)
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
-        err = max(_rel_err(g.reshape(w.shape), w)
-                  for g, w in zip(got, want))
+        # the mLSTM's yardstick: its plain version in float64 on the same
+        # values (see XLSTM_BWD_TOL)
+        want = plain(*_to_f64(pargs)) if kind == "mlstm" else want32
+        errs = [_rel_err(g.reshape(w.shape), w) for g, w in zip(got, want)]
+        err = max(errs)
         abs_err = max(float((g.reshape(w.shape) - w).abs().max())
                       for g, w in zip(got, want))
+        err32 = max(_rel_err(g.reshape(w.shape), w)
+                    for g, w in zip(got, want32))
         same = all(torch.equal(a, g) for a, g in zip(again, got))
         if err > XLSTM_BWD_TOL or not same:
-            fail(f"{name} at B {b} x T {t}: |kernel - plain| / max grad "
-                 f"{err:.3e} (bar {XLSTM_BWD_TOL}), repeat bitwise {same}")
-        del got, again, want
+            fail(f"{name} at B {b} x T {t}: |kernel - plain| / "
+                 f"max grad {err:.3e} (bar {XLSTM_BWD_TOL}; each "
+                 "gradient's: " + ", ".join(f"{e:.3e}" for e in errs)
+                 + f"), repeat bitwise {same}")
+        del got, again, want, want32
         kms = time_ms(lambda: kernel(*kargs), warmup=1, reps=3, rounds=3)
-        log(f"  {name}: |kernel - plain| / max |grad| {err:.3e} (bar "
-            f"{XLSTM_BWD_TOL}), repeat bitwise")
+        yard = "plain (float64)" if kind == "mlstm" else "plain"
+        log(f"  {name}: |kernel - {yard}| / max |grad| {err:.3e} (bar "
+            f"{XLSTM_BWD_TOL}), repeat bitwise; against the plain version "
+            f"in fp32 {err32:.3e}")
         records[name] = _xlstm_record(
             name, (err, abs_err), kms, pms, b, t,
             f"train B{b} T{t} H4 hd{XLSTM[kind + '_hd']} (events; plain "
             "one call, host clock)")
         if kind == "mlstm":
-            # one call is four kernels; its count counts calls
+            # one call is six kernels; its count counts calls
             by_kernel = device_ms_by_kernel(lambda: kernel(*kargs), reps=3)
             parts = {short: ms for short in MLSTM_BWD_PARTS
-                     for key, ms in by_kernel.items() if short in key}
+                     for key, ms in by_kernel.items()
+                     if f"::{short}(" in key}
+            every = sum(by_kernel.values())
             log(f"  {name}: device ms per call by kernel (profiler) "
                 + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
-                + f"; every kernel {sum(by_kernel.values()):.5f} [{CARD}]")
+                + f"; every kernel {every:.5f}, the call by events "
+                f"{kms:.5f} ({kms - every:.5f} outside the kernels) "
+                f"[{CARD}]")
             if set(parts) != set(MLSTM_BWD_PARTS):
                 fail(f"{name}: the profiler saw {sorted(parts)}, want "
                      f"{list(MLSTM_BWD_PARTS)}")
@@ -3003,7 +3052,8 @@ def _chunked_published(cfg, trace_iters: int, measured: bool = False,
 def phase_serving_chunked() -> dict:
     """The reference's default serving configuration on llama3.1-8b and
     the dense-FFN Jamba at published width, cut to save run time: llama
-    to 16 layers (32 before serving-moe needed the room: at 32 its
+    to 8 layers (16 until the whole run came within one slow host of its
+    1200 s limit; 32 before serving-moe needed the room: at 32 its
     features-off run took ~1500 iterations, its host-tier turns decoding
     at 33 iterations per token), Jamba to one period (8 layers: 7 Mamba,
     attention at 3).  llama also runs the traffic on a measured profile
@@ -3953,7 +4003,7 @@ def phase_encoder() -> dict:
 GATEWAY = dict(replicas=2, device_slots=2, host_slots=2, cache_len=512,
                page_size=32, clients=4, per_client=2, prompt_len=128,
                output_len=16, conversations=2, turns=3, turn_tokens=32,
-               crash_at=6, crash_output=32, backlog=16, layers=16)
+               crash_at=6, crash_output=32, backlog=16, layers=8)
 CRASH_REASON = ("replica 0 driver died: FaultInjectedError: replica driver "
                 "crash (injected)")
 
@@ -4271,7 +4321,8 @@ def _one_replica_burst(cfg, params, scfg, prompts, warm, label: str
 
 
 def phase_gateway() -> dict:
-    """llama3.1-8b at published width, cut to 16 layers, behind the
+    """llama3.1-8b at published width, cut to 8 layers (16 until the
+    whole run came within one slow host of its 1200 s limit), behind the
     HTTP/SSE gateway, two replicas sharing its weights: a closed-loop
     burst over real sockets (streams equal to a direct InferenceServer
     run up to two-ULP ties, /health, /metrics, no host fallback), sticky
@@ -4575,7 +4626,18 @@ def _step_split(cfg, state, batch) -> dict:
         f"by device time:")
     for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.3f} ms  {key[:100]}")
-    return dict(parts, profiled_ms=wall * 1e3, busy=busy)
+    # the recurrences' kernels, each summed over the step
+    groups = {"sLSTM forward": "::slstm_scan_kernel<",
+              "sLSTM backward": "::slstm_bwd_kernel<",
+              "mLSTM forward": "::mlstm_scan_kernel<",
+              "mLSTM backward": "::mlstm_bwd_"}
+    split = {g: sum(ms for key, ms in per.items() if pat in key)
+             for g, pat in groups.items()}
+    if any(split.values()):
+        log("  the recurrences in the profiled step: " + ", ".join(
+            f"{g} {ms:.3f} ms" for g, ms in split.items()))
+    return dict(parts, profiled_ms=wall * 1e3, busy=busy,
+                recurrences_ms=split)
 
 
 def _cut(cfg, layers: int, **kw):

@@ -1,47 +1,59 @@
-// mLSTM recurrence for Hopper (sm_90a): the backward walk over T.
+// mLSTM recurrence for Hopper (sm_90a): the backward, chunkwise-parallel.
 //
 // Replaces no Pallas kernel: the reference differentiates its `lax.scan`
 // (src/repro/models/ssm.py:369, the cell at :285) with autodiff; the
-// port's plain version is kernels/ref.py `mlstm_recurrence_bwd_ref`.  For
-// step t in reverse, with C, n, m the state before the step, C_t, n_t its
-// update, s = n_t . q, den = max(|s|, 1), h = C_t q / den (the forward's
-// emitted h) and the carried dC, dn, dm of the state after the step:
-//   dnum = dh / den;  dden = -(dh . h) / den;  ds = dden sign(s) [|s| > 1]
-//   dC_t = dC + dnum q^T;  dn_t = dn + ds q
-//   dq = C_t^T dnum + ds n_t
-//   df_g = <dC_t, C> + dn_t . n;  di_g = v . (dC_t k) + dn_t . k
-//   dv = i_g dC_t k;  dk = i_g (dC_t^T v + dn_t)
-//   dm_tot = dm - di_g i_g - df_g f_g;  di = di_g i_g + dm_tot w_i
-//   df = dm_{t-1} = df_g f_g + dm_tot w_a   (`maximum`: half each on a tie)
-//   dC_{t-1} = f_g dC_t;  dn_{t-1} = f_g dn_t
-// m is differentiated exactly as the reference's autodiff does: the clamp
-// max(|n . q|, 1) makes h depend on m's scale, so m is no constant here.
+// port's plain versions are kernels/ref.py `mlstm_recurrence_bwd_ref` (the
+// reverse walk, one step at a time) and `mlstm_chunkwise_bwd_ref` (this
+// file's algebra in PyTorch, which the tests hold to the first).
 //
-// What bounds it on an H100: the fp32 operations on the memory (about 23
-// per element of C and step, the recompute included) and the latency of
-// the sequential walk; the bytes (q, k, v, h, dh read, dq, dk, dv written)
-// are far below.  Four launches, one call:
-//   1. dh . h per (row, step, head), one warp each;
-//   2. the walk: a CTA per slab of 32 v-rows of one (row, head), as the
-//      forward kernel, 256 threads, the slab of C and of dC in registers.
-//      It first walks forward from the initial state writing the slab of
-//      C (and its own copy of n and m) every 16 steps; then, chunk by
-//      chunk in reverse, recomputes the chunk's 16 memories from the
-//      checkpoint into a per-CTA stash in device memory (each thread reads
-//      back only what it wrote), and walks the chunk in reverse.  dv is
-//      slab-local; dq and dk are sums over all v-rows and df_g, di_g over
-//      all of C, so each CTA writes its slab's partial sums (warps summed
-//      through shared memory in warp order; slab 0 adds the normaliser's
-//      terms) -- no atomics;
-//   3. dq, dk: the slabs' partials summed in slab order;
-//   4. the gates: per (row, head), the stabiliser's chain in reverse over
-//      the slabs' df_g, di_g sums (summed in slab order), giving di, df
-//      and m's initial gradient.
-// Every sum has one fixed order, so a repeat gives the same bits.
+// The forward, per (row, head) and step t, with the stabiliser m:
+//   m_t = max(f_t + m_{t-1}, i_t);  i_g = exp(li_t), li_t = i_t - m_t;
+//   f_g = exp(lf_t), lf_t = f_t + m_{t-1} - m_t  (both exponents <= 0)
+//   C_t = f_g C + i_g v k^T;  n_t = f_g n + i_g k;  s_t = n_t . q_t
+//   h_t = C_t q_t / max(|s_t|, 1)
+// Within a chunk of L steps every product of forget gates is exp of a sum
+// of lf over its own span, so the chunk's work is matrix products (Beck et
+// al., "Tiled Flash Linear Attention", arXiv:2503.14376).  With, in a
+// chunk, alpha_j = exp(lf summed from the chunk's start to j), w_j =
+// exp(lf summed after j to the chunk's end + li_j) and W_jr = exp(lf
+// summed over (r, j] + li_r) for r <= j, and the memory and normaliser as
+// one (hd + 1) x hd matrix B = [C; n] (v extended by a 1), their
+// gradients as E = [dC; dn] (dnum = dh / den extended by ds):
+//   1. gates_fwd: m's max-plus scan (each lane composes its segment of
+//      steps, a warp scan joins them in a fixed order, each lane then
+//      walks its segment with the forward's arithmetic), lf, li, and per
+//      chunk alpha and w;
+//   2. pass 1, one CTA per 64 x 64 tile of B, walking the chunks:
+//      B_{c+1} = alpha_last B_c + [V; 1]^T diag(w) K;
+//   3. chunk: per chunk in parallel, S = Q K^T, s_j = alpha_j q_j . n_c +
+//      sum_r W_jr S_jr, den, ds, e_j = dh_j . h_j + ds_j s_j, and the
+//      masked L x L matrices WP = W * (dnum V^T + ds) and WS = W * S;
+//   4. pass 2, per tile walking the chunks in reverse: E_{c-1} =
+//      alpha_last E_c + (alpha [dnum, ds])^T Q from E = the final state's
+//      gradient (its end is dC0, dn0), and each tile's <E_c, B_{c+1}>;
+//   5. intra: per (chunk, 64 columns) in parallel, dq = alpha [dnum, ds]
+//      B_c + WP K, dk = w ([V, 1] E_c) + WP^T Q, dv = w (K dC_c^T) + WS^T
+//      dnum, and X_j = dk_j . k_j (= di_g i_g) per column tile;
+//   6. gates_bwd: df_g f_g = Y_j = <E_c, B_{c+1}> + sum over the chunk's
+//      steps s >= j of (e_s - X_s) (0 where f_g is 0), then m's chain in
+//      reverse, dm_{t-1} = Y + w_a (dm - X - Y), as an affine scan over
+//      lane segments joined in a fixed order; di, df, dm0.
+// So the longest chain of dependent steps runs over chunks: no kernel
+// walks T one step at a time.
+//
+// What bounds it on an H100: the products, about 6 (hd + 1) hd L fp32
+// multiply-adds a chunk (passes 1 and 2 and the intra gradients' state
+// terms) and 5 hd L^2 (the masked products), on tensor cores in 3xTF32
+// (each fp32 operand split into a TF32 high and low part, three mma.sync
+// m16n8k8 products summed in fp32: about fp32's accuracy) or on FMAs
+// (APEX_MLSTM_BWD_TF32X3 0).  Every sum has one fixed order and there are
+// no atomics, so a repeat gives the same bits.  Scratch: the boundary
+// memories and their gradients, (T / L + 1) and T / L tiles of (hd + 1)
+// hd floats a (row, head), the chunks' L x L matrices and a few floats a
+// step, and dnum = dh / den (`apex_mlstm_scan_bwd_scratch_floats`).
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's
-// stream, never synchronises, allocates nothing (the wrapper passes the
-// checkpoint, stash and partial-sum scratch), and returns
+// stream, never synchronises, allocates nothing, and returns
 // cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -53,55 +65,32 @@
 #define APEX_LAUNCH(kernel, grid, block, smem, stream, ...) \
   kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
 #endif
+#ifndef APEX_MLSTM_BWD_CHUNK
+#define APEX_MLSTM_BWD_CHUNK 64
+#endif
+#ifndef APEX_MLSTM_BWD_TF32X3
+#define APEX_MLSTM_BWD_TF32X3 0
+#endif
 
 namespace {
 
-constexpr int kRows = 32;        // v-rows of C per CTA (a slab)
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kChunk = 16;       // steps between checkpoints
+constexpr int kL = APEX_MLSTM_BWD_CHUNK;     // steps per chunk
+constexpr bool kTf32x3 = APEX_MLSTM_BWD_TF32X3 != 0;
+constexpr int kM = kL < 64 ? kL : 64;        // rows of an intra tile
+constexpr int kThreads = 256;
+constexpr int kN = 64;                       // columns of a tile
+constexpr int kKS = 32;                      // depth of a staged slice
+constexpr int kLd = 72;                      // smem row stride (floats)
+constexpr int kSlots = 8;                    // per-step scalars
+// slots of the per-step scalars: m, lf, li, alpha, w, den, ds, e
+enum { kSm = 0, kSlf, kSli, kSal, kSw, kSden, kSds, kSe };
+static_assert(kL == 32 || kL == 64 || kL == 128, "chunk of 32/64/128");
 
-template <int HD>
-struct Geo {
-  static constexpr int NC = HD / 32;             // columns per lane
-  static constexpr int kSlabs = HD / kRows;
-  // one staged step: q, k (hd), the slab's v and dh, i, f, dh . h, pad
-  static constexpr int kQ = 0, kK = HD, kV = 2 * HD, kDH = 2 * HD + kRows;
-  static constexpr int kI = 2 * HD + 2 * kRows, kF = kI + 1, kHdot = kI + 2;
-  static constexpr int kStep = 2 * HD + 2 * kRows + 4;
-  static constexpr int kIn = 0;                          // [kChunk][kStep]
-  static constexpr int kN = kIn + kChunk * kStep;        // [kChunk][HD]
-  static constexpr int kSc = kN + kChunk * HD;           // [kChunk][4]
-  static constexpr int kRedQ = kSc + kChunk * 4;         // [kWarps][HD]
-  static constexpr int kRedK = kRedQ + kWarps * HD;      // [kWarps][HD]
-  static constexpr int kExQ = kRedK + kWarps * HD;       // [HD]
-  static constexpr int kExK = kExQ + HD;                 // [HD]
-  static constexpr int kRedS = kExK + HD;                // [kWarps][2] + 2
-  static constexpr int kFloats = kRedS + 2 * kWarps + 4;
-  static constexpr size_t kBytes = (size_t)kFloats * sizeof(float);
-  static_assert(HD % kRows == 0 && HD % 32 == 0, "slabs of 32 rows");
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__host__ __device__ constexpr int cdiv(int a, int b) {
+  return (a + b - 1) / b;
 }
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return __shfl_sync(0xffffffffu, x, 0);
+__host__ __device__ constexpr size_t up4(size_t x) {
+  return (x + 3) & ~(size_t)3;
 }
 
 __device__ __forceinline__ float max_share(float a, float b) {
@@ -111,480 +100,861 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
 }
 
-// 1. dh . h for every (row, step, head), into scal[(b, h, t)][0]
-template <int HD>
+// ---------------------------------------------------------------------------
+// A 64-column tile of M rows (32 or 64) accumulated over staged slices:
+// As[p][i] = A(i, p) and Bs[p][j] = B(p, j), kKS deep, rows kLd floats.
+// 3xTF32 on mma.sync m16n8k8 (warp (wm, wn): rows 16 wm, NT n-tiles of 8)
+// or fp32 FMAs (thread (ty, tx): rows M/16 ty.., columns 4 tx..).
+// ---------------------------------------------------------------------------
+
+template <int M>
+struct Tile {
+  static constexpr int kE = M / 4;           // accumulators a thread
+  static constexpr int WM = M / 16, WN = 8 / WM, NW = kN / WN, NT = NW / 8;
+  static constexpr int RPT = M / 16;         // FMA rows a thread
+  // a thread's accumulators come in runs of kRun adjacent columns
+  static constexpr int kRun = kTf32x3 ? 2 : 4;
+  float v[kE];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) v[e] = 0.f;
+  }
+  __device__ __forceinline__ static int row(int e) {
+    const int tid = threadIdx.x;
+    if (kTf32x3) {
+      const int w = tid >> 5, g = (tid & 31) >> 2;
+      return (w % WM) * 16 + g + ((e & 3) >= 2 ? 8 : 0);
+    }
+    return (tid >> 4) * RPT + (e >> 2);
+  }
+  __device__ __forceinline__ static int col(int e) {
+    const int tid = threadIdx.x;
+    if (kTf32x3) {
+      const int w = tid >> 5, t = tid & 3;
+      return (w / WM) * NW + (e >> 2) * 8 + 2 * t + (e & 1);
+    }
+    return (tid & 15) * 4 + (e & 3);
+  }
+  __device__ __forceinline__ void scale_rows(const float* f) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) v[e] = __fmul_rn(f[row(e)], v[e]);
+  }
+};
+
+// a run of N (4 or 2) adjacent floats at a 4N-byte aligned address
+template <int N>
+__device__ __forceinline__ void put_run(float* p, const float* v) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+template <int N>
+__device__ __forceinline__ void get_run(const float* p, float* v) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+}
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
+                                         const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A B over one staged slice
+template <int M>
+__device__ __forceinline__ void mma_slice(Tile<M>& acc, const float* As,
+                                          const float* Bs) {
+  using T = Tile<M>;
+  const int tid = threadIdx.x;
+  if constexpr (kTf32x3) {
+    const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+    const int m0 = (w % T::WM) * 16, n0 = (w / T::WM) * T::NW;
+#pragma unroll
+    for (int k0 = 0; k0 < kKS; k0 += 8) {
+      unsigned ah[4], al[4];
+      split_tf32(As[(k0 + t) * kLd + m0 + g], ah[0], al[0]);
+      split_tf32(As[(k0 + t) * kLd + m0 + g + 8], ah[1], al[1]);
+      split_tf32(As[(k0 + t + 4) * kLd + m0 + g], ah[2], al[2]);
+      split_tf32(As[(k0 + t + 4) * kLd + m0 + g + 8], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt) {
+        unsigned bh[2], bl[2];
+        split_tf32(Bs[(k0 + t) * kLd + n0 + nt * 8 + g], bh[0], bl[0]);
+        split_tf32(Bs[(k0 + t + 4) * kLd + n0 + nt * 8 + g], bh[1], bl[1]);
+        mma_tf32(acc.v + 4 * nt, al, bh);   // the small terms first
+        mma_tf32(acc.v + 4 * nt, ah, bl);
+        mma_tf32(acc.v + 4 * nt, ah, bh);
+      }
+    }
+  } else {
+    const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll 4
+    for (int p = 0; p < kKS; ++p) {
+      const float4 b = *reinterpret_cast<const float4*>(Bs + p * kLd + 4 * tx);
+#pragma unroll
+      for (int r = 0; r < T::RPT; ++r) {
+        const float a = As[p * kLd + ty * T::RPT + r];
+        acc.v[4 * r + 0] = __fmaf_rn(a, b.x, acc.v[4 * r + 0]);
+        acc.v[4 * r + 1] = __fmaf_rn(a, b.y, acc.v[4 * r + 1]);
+        acc.v[4 * r + 2] = __fmaf_rn(a, b.z, acc.v[4 * r + 2]);
+        acc.v[4 * r + 3] = __fmaf_rn(a, b.w, acc.v[4 * r + 3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 scale4(float s, float4 v) {
+  return make_float4(__fmul_rn(s, v.x), __fmul_rn(s, v.y), __fmul_rn(s, v.z),
+                     __fmul_rn(s, v.w));
+}
+__device__ __forceinline__ float4 zero4() { return make_float4(0, 0, 0, 0); }
+__device__ __forceinline__ float4 first4(float x) {
+  return make_float4(x, 0, 0, 0);
+}
+
+// A slice S[p][i], p < kKS, i < W, moves four elements at a time: with
+// PFAST f(p, i) gives (p..p+3, i) (sources contiguous in p: eight threads
+// read 128 bytes of one row), else (p, i..i+3), stored as one 16-byte
+// word.  fetch loads a thread's pieces into registers, put stores them.
+template <int W>
+constexpr int kPieces = kKS * W / 4 / kThreads;
+
+template <int W, bool PFAST>
+__device__ __forceinline__ void piece(int n, int& p, int& i) {
+  const int e = threadIdx.x + n * kThreads;
+  p = PFAST ? 4 * (e % (kKS / 4)) : e / (W / 4);
+  i = PFAST ? e / (kKS / 4) : 4 * (e % (W / 4));
+}
+
+template <int W, bool PFAST, class F>
+__device__ __forceinline__ void fetch(float4* r, int k0, F f) {
+#pragma unroll
+  for (int n = 0; n < kPieces<W>; ++n) {
+    int p, i;
+    piece<W, PFAST>(n, p, i);
+    r[n] = f(k0 + p, i);
+  }
+}
+
+template <int W, bool PFAST>
+__device__ __forceinline__ void put(float* S, const float4* r) {
+#pragma unroll
+  for (int n = 0; n < kPieces<W>; ++n) {
+    int p, i;
+    piece<W, PFAST>(n, p, i);
+    if (PFAST) {
+      S[p * kLd + i] = r[n].x;
+      S[(p + 1) * kLd + i] = r[n].y;
+      S[(p + 2) * kLd + i] = r[n].z;
+      S[(p + 3) * kLd + i] = r[n].w;
+    } else {
+      *reinterpret_cast<float4*>(S + p * kLd + i) = r[n];
+    }
+  }
+}
+
+// acc += A B, A(i, p) and B(p, j) from fa(p, i) and fb(p, j), four
+// elements each (see fetch), p < depth (the functions give 0 past every
+// edge; hd is a multiple of 4, so no group of four straddles it).  As and
+// Bs hold two slices each: the next slice's loads are in flight while the
+// current one is multiplied, one barrier a slice.
+constexpr int kBuf = kKS * kLd;              // floats of one staged slice
+
+template <int M, bool AP, bool BP, class FA, class FB>
+__device__ __forceinline__ void gemm(Tile<M>& acc, float* As, float* Bs,
+                                     int depth, FA fa, FB fb) {
+  float4 ra[kPieces<M>], rb[kPieces<kN>];
+  fetch<M, AP>(ra, 0, fa);
+  fetch<kN, BP>(rb, 0, fb);
+  put<M, AP>(As, ra);
+  put<kN, BP>(Bs, rb);
+  __syncthreads();
+  int cur = 0;
+  for (int k0 = 0; k0 < depth; k0 += kKS) {
+    const bool more = k0 + kKS < depth;
+    if (more) {
+      fetch<M, AP>(ra, k0 + kKS, fa);
+      fetch<kN, BP>(rb, k0 + kKS, fb);
+    }
+    mma_slice<M>(acc, As + cur * kBuf, Bs + cur * kBuf);
+    if (more) {
+      put<M, AP>(As + (cur ^ 1) * kBuf, ra);
+      put<kN, BP>(Bs + (cur ^ 1) * kBuf, rb);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Geometry of one call and its scratch
+// ---------------------------------------------------------------------------
+
+struct Geo {
+  int B, T, H, HD, nck, rt, ct;
+  size_t sc, bnd, ebnd, wps, pp, px, dnum, total;   // offsets in floats
+  __host__ __device__ Geo(int b, int t, int h, int hd)
+      : B(b), T(t), H(h), HD(hd), nck(cdiv(t, kL)), rt(cdiv(hd + 1, 64)),
+        ct(cdiv(hd, 64)) {
+    const size_t bh = (size_t)b * h, st = (size_t)(hd + 1) * hd;
+    sc = 0;
+    bnd = sc + up4(bh * kSlots * t);
+    ebnd = bnd + up4(bh * (nck + 1) * st);
+    wps = ebnd + up4(bh * nck * st);
+    pp = wps + up4(bh * nck * 2 * kL * kL);
+    px = pp + up4(bh * nck * rt * ct);
+    dnum = px + up4(bh * ct * t);
+    total = dnum + up4(bh * t * hd);
+  }
+  // element (b, t, head, x) of a (B, T, H, hd) tensor
+  __device__ size_t seq(int b, int t, int head) const {
+    return (((size_t)b * T + t) * H + head) * HD;
+  }
+  __device__ size_t gate(int b, int t, int head) const {
+    return ((size_t)b * T + t) * H + head;
+  }
+};
+
+struct Args {
+  const float *q, *k, *v, *ig, *fg, *c0, *n0, *m0, *hs, *dhs, *dc_t, *dn_t,
+      *dm_t;
+  float *scratch, *dq, *dk, *dv, *di, *df, *dc0, *dn0, *dm0;
+};
+
+// ---------------------------------------------------------------------------
+// 1. gates_fwd: m, lf, li a step, alpha and w a chunk; one warp a (row, head)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+    mlstm_bwd_gates_fwd(Args a, Geo geo) {
+  const int bh = blockIdx.x, b = bh / geo.H, head = bh % geo.H;
+  const int lane = threadIdx.x, T = geo.T;
+  float* sc = a.scratch + geo.sc + (size_t)bh * kSlots * T;
+  const int seg = cdiv(T, 32), t0 = min(T, lane * seg),
+            t1 = min(T, t0 + seg);
+  // the segment's map x -> max(x + P, Q)
+  float P = 0.f, Q = -INFINITY;
+  for (int t = t0; t < t1; ++t) {
+    const size_t gi = geo.gate(b, t, head);
+    P = __fadd_rn(P, a.fg[gi]);
+    Q = fmaxf(__fadd_rn(Q, a.fg[gi]), a.ig[gi]);
+  }
+  // inclusive scan over lanes: the earlier map first
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float p = __shfl_up_sync(0xffffffffu, P, off);
+    const float q = __shfl_up_sync(0xffffffffu, Q, off);
+    if (lane >= off) {
+      Q = fmaxf(__fadd_rn(q, P), Q);
+      P = __fadd_rn(p, P);
+    }
+  }
+  float pe = __shfl_up_sync(0xffffffffu, P, 1);
+  float qe = __shfl_up_sync(0xffffffffu, Q, 1);
+  const float m_first = a.m0[bh];
+  float m = lane == 0 ? m_first : fmaxf(__fadd_rn(m_first, pe), qe);
+  for (int t = t0; t < t1; ++t) {
+    const size_t gi = geo.gate(b, t, head);
+    const float am = __fadd_rn(a.fg[gi], m);
+    const float m_new = fmaxf(am, a.ig[gi]);
+    sc[kSm * T + t] = m_new;
+    sc[kSlf * T + t] = __fsub_rn(am, m_new);
+    sc[kSli * T + t] = __fsub_rn(a.ig[gi], m_new);
+    m = m_new;
+  }
+  __syncwarp();
+  for (int c = lane; c < geo.nck; c += 32) {
+    const int c0 = c * kL, c1 = min(T, c0 + kL);
+    float acc = 0.f;
+    for (int t = c0; t < c1; ++t) {
+      acc = __fadd_rn(acc, sc[kSlf * T + t]);
+      sc[kSal * T + t] = expf(acc);
+    }
+    float suf = 0.f;
+    for (int t = c1 - 1; t >= c0; --t) {
+      sc[kSw * T + t] = expf(__fadd_rn(suf, sc[kSli * T + t]));
+      suf = __fadd_rn(suf, sc[kSlf * T + t]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. pass 1: the boundary memories [C; n], one 64 x 64 tile a CTA
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(kThreads)
-    mlstm_bwd_hdot(const float* __restrict__ hs,
-                   const float* __restrict__ dhs, float* __restrict__ scal,
-                   int B, int T, int H) {
-  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= B * T * H) return;
-  const int head = w % H, bt = w / H, t = bt % T, b = bt / T;
-  const float* hp = hs + (size_t)w * HD;
-  const float* dp = dhs + (size_t)w * HD;
-  float acc = 0.f;
+    mlstm_bwd_bounds(Args a, Geo geo) {
+  __shared__ __align__(16) float As[2 * kBuf], Bs[2 * kBuf];
+  const int bh = blockIdx.z, b = bh / geo.H, head = bh % geo.H;
+  const int HD = geo.HD, T = geo.T;
+  const int r0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+  const float* sc = a.scratch + geo.sc + (size_t)bh * kSlots * T;
+  const size_t st = (size_t)(HD + 1) * HD;
+  float* bnd = a.scratch + geo.bnd + (size_t)bh * (geo.nck + 1) * st;
+  using TL = Tile<64>;
+  constexpr int N = TL::kRun;
+  TL acc;
+  auto store = [&](float* dst) {
 #pragma unroll
-  for (int j = 0; j < HD / 32; ++j)
-    acc = __fmaf_rn(dp[lane + 32 * j], hp[lane + 32 * j], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) scal[(((size_t)b * H + head) * T + t) * 2] = acc;
-}
-
-// 2. the walk
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-    mlstm_bwd_walk(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ ig,
-                   const float* __restrict__ fg,
-                   const float* __restrict__ c0,
-                   const float* __restrict__ n0,
-                   const float* __restrict__ m0,
-                   const float* __restrict__ dhs,
-                   const float* __restrict__ dc_t,
-                   const float* __restrict__ dn_t,
-                   float* __restrict__ ckpt_c, float* __restrict__ ckpt_nm,
-                   float* __restrict__ stash, float* __restrict__ part_qk,
-                   float* __restrict__ part_fi,
-                   const float* __restrict__ scal, float* __restrict__ dv,
-                   float* __restrict__ dc0, float* __restrict__ dn0, int B,
-                   int T, int H) {
-  using G = Geo<HD>;
-  constexpr int S = G::kSlabs, NC = G::NC;
-  const int slab = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = slab * kRows + warp * kRowsPerWarp;
-  extern __shared__ __align__(16) float smem[];
-  float* in_s = smem + G::kIn;
-  float* n_st = smem + G::kN;
-  float* sc_s = smem + G::kSc;
-  float* red_q = smem + G::kRedQ;
-  float* red_k = smem + G::kRedK;
-  float* ex_q = smem + G::kExQ;
-  float* ex_k = smem + G::kExK;
-  float* red_s = smem + G::kRedS;
-
-  const size_t bh = (size_t)b * H + head;
-  const int nck = (T + kChunk - 1) / kChunk;
-  const size_t cta = bh * S + slab;
-  float* my_nm = ckpt_nm + cta * nck * (HD + 4);
-  float* my_stash = stash + cta * kChunk * kRows * HD;
-  const size_t seq = (size_t)B * T * H * HD;   // one partial plane
-
-  // stage chunk c's steps; `full` adds q, dh and dh . h (the reverse walk)
-  auto stage = [&](int c, bool full) {
-    const int t0 = c * kChunk, rows = min(kChunk, T - t0);
-    constexpr int kVec = HD / 4;
-    const int per = (full ? 2 * kVec + 2 * (kRows / 4) : kVec + kRows / 4);
-    for (int j = tid; j < rows * per; j += kThreads) {
-      const int s = j / per, e = j % per;
-      const size_t src = (((size_t)b * T + t0 + s) * H + head) * HD;
-      float* dst = in_s + s * G::kStep;
-      if (!full) {
-        if (e < kVec)
-          cp_async16(dst + G::kK + 4 * e, k + src + 4 * e);
-        else
-          cp_async16(dst + G::kV + 4 * (e - kVec),
-                     v + src + slab * kRows + 4 * (e - kVec));
-      } else if (e < kVec) {
-        cp_async16(dst + G::kQ + 4 * e, q + src + 4 * e);
-      } else if (e < 2 * kVec) {
-        cp_async16(dst + G::kK + 4 * (e - kVec), k + src + 4 * (e - kVec));
-      } else if (e < 2 * kVec + kRows / 4) {
-        cp_async16(dst + G::kV + 4 * (e - 2 * kVec),
-                   v + src + slab * kRows + 4 * (e - 2 * kVec));
-      } else {
-        const int o = e - 2 * kVec - kRows / 4;
-        cp_async16(dst + G::kDH + 4 * o, dhs + src + slab * kRows + 4 * o);
-      }
+    for (int e = 0; e < TL::kE; e += N) {
+      const int r = r0 + acc.row(e), c = k0 + acc.col(e);
+      if (r <= HD && c < HD) put_run<N>(dst + (size_t)r * HD + c, acc.v + e);
     }
-    const int scalars = full ? 3 : 2;
-    for (int j = tid; j < rows * scalars; j += kThreads) {
-      const int s = j / scalars, e = j % scalars;
-      const size_t gi = ((size_t)b * T + t0 + s) * H + head;
-      float* dst = in_s + s * G::kStep;
-      if (e == 0)
-        cp_async4(dst + G::kI, ig + gi);
-      else if (e == 1)
-        cp_async4(dst + G::kF, fg + gi);
-      else
-        cp_async4(dst + G::kHdot, scal + (bh * T + t0 + s) * 2);
-    }
-    cp_async_wait_all();
   };
-
-  float cm[kRowsPerWarp][NC], nv[NC];
-  float m;
-  // ---- forward walk: a checkpoint every kChunk steps ----
+  acc.zero();
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      cm[r][j] = c0[(bh * HD + row0 + r) * HD + lane + 32 * j];
-#pragma unroll
-  for (int j = 0; j < NC; ++j) nv[j] = n0[bh * HD + lane + 32 * j];
-  m = m0[bh];
-  for (int c = 0; c < nck; ++c) {
-    float* ck = ckpt_c + ((bh * nck + c) * HD + row0) * HD;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) ck[r * HD + lane + 32 * j] = cm[r][j];
-    if (warp == 0) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        my_nm[(size_t)c * (HD + 4) + lane + 32 * j] = nv[j];
-      if (lane == 0) my_nm[(size_t)c * (HD + 4) + HD] = m;
-    }
-    if (c == nck - 1) break;
-    __syncthreads();
-    stage(c, false);
-    __syncthreads();
-    for (int s = 0; s < kChunk; ++s) {
-      const float* sp = in_s + s * G::kStep;
-      const float a = __fadd_rn(sp[G::kF], m);
-      const float m_new = fmaxf(a, sp[G::kI]);
-      const float i_g = expf(__fsub_rn(sp[G::kI], m_new));
-      const float f_g = expf(__fsub_rn(a, m_new));
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float kj = sp[G::kK + lane + 32 * j];
-        nv[j] = __fadd_rn(__fmul_rn(f_g, nv[j]), __fmul_rn(i_g, kj));
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float vr = sp[G::kV + warp * kRowsPerWarp + r];
-          cm[r][j] = __fadd_rn(__fmul_rn(f_g, cm[r][j]),
-                               __fmul_rn(i_g, __fmul_rn(vr, kj)));
-        }
-      }
-      m = m_new;
-    }
+  for (int e = 0; e < TL::kE; e += N) {
+    const int r = r0 + acc.row(e), c = k0 + acc.col(e);
+    if (r < HD && c < HD)
+      get_run<N>(a.c0 + ((size_t)bh * HD + r) * HD + c, acc.v + e);
+    else if (r == HD && c < HD)
+      get_run<N>(a.n0 + (size_t)bh * HD + c, acc.v + e);
   }
-
-  // ---- reverse walk, chunk by chunk ----
-  float dcm[kRowsPerWarp][NC], dn[NC];
+  store(bnd);
+  for (int c = 0; c < geo.nck; ++c) {
+    const int c0 = c * kL, len = min(kL, T - c0);
+    const float al = sc[kSal * T + c0 + len - 1];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      dcm[r][j] = dc_t != nullptr
-                      ? dc_t[(bh * HD + row0 + r) * HD + lane + 32 * j]
-                      : 0.f;
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-    dn[j] = dn_t != nullptr ? dn_t[bh * HD + lane + 32 * j] : 0.f;
-
-  for (int c = nck - 1; c >= 0; --c) {
-    const int t0 = c * kChunk, rows = min(kChunk, T - t0);
-    __syncthreads();
-    stage(c, true);
-    const float* ck = ckpt_c + ((bh * nck + c) * HD + row0) * HD;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) cm[r][j] = ck[r * HD + lane + 32 * j];
-    __syncthreads();   // the staged chunk, and warp 0's n checkpoint
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      nv[j] = my_nm[(size_t)c * (HD + 4) + lane + 32 * j];
-    m = my_nm[(size_t)c * (HD + 4) + HD];
-    // recompute the chunk: the memory before each step into the stash
-    for (int s = 0; s < rows; ++s) {
-      const float* sp = in_s + s * G::kStep;
-      float* st = my_stash + ((size_t)s * kRows + warp * kRowsPerWarp) * HD;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) st[r * HD + lane + 32 * j] = cm[r][j];
-      if (warp == 0) {
-#pragma unroll
-        for (int j = 0; j < NC; ++j) n_st[s * HD + lane + 32 * j] = nv[j];
-      }
-      const float a = __fadd_rn(sp[G::kF], m);
-      const float m_new = fmaxf(a, sp[G::kI]);
-      const float i_g = expf(__fsub_rn(sp[G::kI], m_new));
-      const float f_g = expf(__fsub_rn(a, m_new));
-      float sdot = 0.f;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float kj = sp[G::kK + lane + 32 * j];
-        nv[j] = __fadd_rn(__fmul_rn(f_g, nv[j]), __fmul_rn(i_g, kj));
-        sdot = __fmaf_rn(nv[j], sp[G::kQ + lane + 32 * j], sdot);
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float vr = sp[G::kV + warp * kRowsPerWarp + r];
-          cm[r][j] = __fadd_rn(__fmul_rn(f_g, cm[r][j]),
-                               __fmul_rn(i_g, __fmul_rn(vr, kj)));
-        }
-      }
-      sdot = warp_sum(sdot);
-      if (tid == 0) {
-        sc_s[4 * s] = i_g;
-        sc_s[4 * s + 1] = f_g;
-        sc_s[4 * s + 2] = sdot;
-        sc_s[4 * s + 3] = fmaxf(fabsf(sdot), 1.f);
-      }
-      m = m_new;
-    }
-    __syncthreads();   // n_st and sc_s
-    for (int s = rows - 1; s >= 0; --s) {
-      const int t = t0 + s;
-      const float* sp = in_s + s * G::kStep;
-      const float i_g = sc_s[4 * s], f_g = sc_s[4 * s + 1];
-      const float sdot = sc_s[4 * s + 2], den = sc_s[4 * s + 3];
-      const float dden = __fdiv_rn(-sp[G::kHdot], den);
-      const float ds = __fmul_rn(__fmul_rn(dden, sign_of(sdot)),
-                                 max_share(fabsf(sdot), 1.f));
-      const float* st = my_stash + ((size_t)s * kRows + warp * kRowsPerWarp) * HD;
-      float qv[NC], kv[NC], qacc[NC], kacc[NC];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        qv[j] = sp[G::kQ + lane + 32 * j];
-        kv[j] = sp[G::kK + lane + 32 * j];
-        qacc[j] = 0.f;
-        kacc[j] = 0.f;
-      }
-      float dfp = 0.f, dip = 0.f;
-      const size_t bth = ((size_t)b * T + t) * H + head;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float vr = sp[G::kV + warp * kRowsPerWarp + r];
-        const float dnum = __fdiv_rn(sp[G::kDH + warp * kRowsPerWarp + r], den);
-        float rr = 0.f;
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const float cp = st[r * HD + lane + 32 * j];
-          const float dcn = __fadd_rn(dcm[r][j], __fmul_rn(dnum, qv[j]));
-          const float cn = __fadd_rn(__fmul_rn(f_g, cp),
-                                     __fmul_rn(i_g, __fmul_rn(vr, kv[j])));
-          dfp = __fmaf_rn(dcn, cp, dfp);
-          rr = __fmaf_rn(dcn, kv[j], rr);
-          qacc[j] = __fmaf_rn(cn, dnum, qacc[j]);
-          kacc[j] = __fmaf_rn(dcn, vr, kacc[j]);
-          dcm[r][j] = __fmul_rn(f_g, dcn);
-        }
-        rr = warp_sum(rr);
-        if (lane == 0) dv[bth * HD + row0 + r] = __fmul_rn(i_g, rr);
-        dip = __fmaf_rn(vr, rr, dip);
-      }
-      dfp = warp_sum(dfp);
-      if (slab == 0) {       // the normaliser's terms, once per (row, head)
-        float dfn = 0.f, din = 0.f;
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int col = lane + 32 * j;
-          const float dnn = __fadd_rn(dn[j], __fmul_rn(ds, qv[j]));
-          const float np = n_st[s * HD + col];
-          const float nn = __fadd_rn(__fmul_rn(f_g, np), __fmul_rn(i_g, kv[j]));
-          dfn = __fmaf_rn(dnn, np, dfn);
-          din = __fmaf_rn(dnn, kv[j], din);
-          if (warp == 0) {
-            ex_q[col] = __fmul_rn(ds, nn);
-            ex_k[col] = dnn;
-          }
-          dn[j] = __fmul_rn(f_g, dnn);
-        }
-        dfn = warp_sum(dfn);
-        din = warp_sum(din);
-        if (tid == 0) {
-          red_s[2 * kWarps] = dfn;
-          red_s[2 * kWarps + 1] = din;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        red_q[warp * HD + lane + 32 * j] = qacc[j];
-        red_k[warp * HD + lane + 32 * j] = kacc[j];
-      }
-      if (lane == 0) {
-        red_s[2 * warp] = dfp;
-        red_s[2 * warp + 1] = dip;
-      }
-      __syncthreads();
-      float* pq = part_qk + (size_t)slab * seq + bth * HD;
-      float* pk = part_qk + (size_t)(S + slab) * seq + bth * HD;
-      for (int col = tid; col < HD; col += kThreads) {
-        float sq = red_q[col], sk = red_k[col];
-#pragma unroll
-        for (int w = 1; w < kWarps; ++w) {
-          sq = __fadd_rn(sq, red_q[w * HD + col]);
-          sk = __fadd_rn(sk, red_k[w * HD + col]);
-        }
-        if (slab == 0) {
-          sq = __fadd_rn(sq, ex_q[col]);
-          sk = __fadd_rn(sk, ex_k[col]);
-        }
-        pq[col] = sq;
-        pk[col] = __fmul_rn(i_g, sk);
-      }
-      if (tid == 0) {
-        float sf = red_s[0], si = red_s[1];
-        for (int w = 1; w < kWarps; ++w) {
-          sf = __fadd_rn(sf, red_s[2 * w]);
-          si = __fadd_rn(si, red_s[2 * w + 1]);
-        }
-        if (slab == 0) {
-          sf = __fadd_rn(sf, red_s[2 * kWarps]);
-          si = __fadd_rn(si, red_s[2 * kWarps + 1]);
-        }
-        float* pf = part_fi + ((bh * T + t) * S + slab) * 2;
-        pf[0] = sf;
-        pf[1] = si;
-      }
-      __syncthreads();   // the reduction buffers are reused next step
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      dc0[(bh * HD + row0 + r) * HD + lane + 32 * j] = dcm[r][j];
-  if (slab == 0 && warp == 0) {
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dn0[bh * HD + lane + 32 * j] = dn[j];
+    for (int e = 0; e < TL::kE; ++e) acc.v[e] = __fmul_rn(al, acc.v[e]);
+    gemm<64, false, false>(
+        acc, As, Bs, len,
+        [&](int p, int i) {
+          const int r = r0 + i;
+          if (p >= len || r > HD) return zero4();
+          const float w = sc[kSw * T + c0 + p];
+          return r < HD ? scale4(w, ld4(a.v + geo.seq(b, c0 + p, head) + r))
+                        : first4(w);
+        },
+        [&](int p, int j) {
+          const int col = k0 + j;
+          return p < len && col < HD
+                     ? ld4(a.k + geo.seq(b, c0 + p, head) + col) : zero4();
+        });
+    store(bnd + (size_t)(c + 1) * st);
   }
 }
 
-// 3. dq, dk: the slabs' partials in slab order
-__global__ void mlstm_bwd_reduce(const float* __restrict__ part_qk,
-                                 float* __restrict__ dq,
-                                 float* __restrict__ dk, size_t seq, int S) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= seq) return;
-  float sq = part_qk[i], sk = part_qk[(size_t)S * seq + i];
-  for (int s = 1; s < S; ++s) {
-    sq = __fadd_rn(sq, part_qk[(size_t)s * seq + i]);
-    sk = __fadd_rn(sk, part_qk[(size_t)(S + s) * seq + i]);
-  }
-  dq[i] = sq;
-  dk[i] = sk;
-}
+// ---------------------------------------------------------------------------
+// 3. chunk: den, ds, e per step and the masked L x L products per chunk
+// ---------------------------------------------------------------------------
 
-// 4. the gates: the stabiliser's chain per (row, head)
-__global__ void mlstm_bwd_gates(const float* __restrict__ ig,
-                                const float* __restrict__ fg,
-                                const float* __restrict__ m0,
-                                const float* __restrict__ dm_t,
-                                const float* __restrict__ part_fi,
-                                float* __restrict__ scal,
-                                float* __restrict__ di,
-                                float* __restrict__ df,
-                                float* __restrict__ dm0, int B, int T, int H,
-                                int S) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * H) return;
-  const int b = idx / H, head = idx % H;
-  float m = m0[idx];
-  for (int t = 0; t < T; ++t) {
-    const size_t gi = ((size_t)b * T + t) * H + head;
-    scal[((size_t)idx * T + t) * 2 + 1] = m;
-    m = fmaxf(__fadd_rn(fg[gi], m), ig[gi]);
+constexpr int kLp = kL + 1;   // row stride of the L x L smem matrices
+constexpr size_t kChunkSmem =
+    (size_t)(4 * kBuf + 2 * kL * kLp + 8 * kL) * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads)
+    mlstm_bwd_chunk(Args a, Geo geo) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = As + 2 * kBuf;
+  float* Wm = Bs + 2 * kBuf;           // W, then W * S
+  float* Xm = Wm + kL * kLp;           // W * S (row sums)
+  float* lf = Xm + kL * kLp;
+  float* li = lf + kL;
+  float* al = li + kL;
+  float* den = al + kL;
+  float* ds = den + kL;
+  float* sq = ds + kL;
+  float* hd_ = sq + kL;
+  const int c = blockIdx.x, bh = blockIdx.y, b = bh / geo.H,
+            head = bh % geo.H;
+  const int HD = geo.HD, T = geo.T, tid = threadIdx.x;
+  const int c0 = c * kL, len = min(kL, T - c0);
+  float* sc = a.scratch + geo.sc + (size_t)bh * kSlots * T;
+  const size_t st = (size_t)(HD + 1) * HD;
+  const float* nb = a.scratch + geo.bnd +
+                    ((size_t)bh * (geo.nck + 1) + c) * st + (size_t)HD * HD;
+  float* wp = a.scratch + geo.wps + ((size_t)bh * geo.nck + c) * 2 * kL * kL;
+  float* ws = wp + kL * kL;
+  for (int j = tid; j < kL; j += kThreads) {
+    lf[j] = j < len ? sc[kSlf * T + c0 + j] : 0.f;
+    li[j] = j < len ? sc[kSli * T + c0 + j] : 0.f;
+    al[j] = j < len ? sc[kSal * T + c0 + j] : 0.f;
   }
-  float dm = dm_t != nullptr ? dm_t[idx] : 0.f;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t gi = ((size_t)b * T + t) * H + head;
-    const float m_prev = scal[((size_t)idx * T + t) * 2 + 1];
-    const float a = __fadd_rn(fg[gi], m_prev);
-    const float m_new = fmaxf(a, ig[gi]);
-    const float i_g = expf(__fsub_rn(ig[gi], m_new));
-    const float f_g = expf(__fsub_rn(a, m_new));
-    const float* pf = part_fi + ((size_t)idx * T + t) * S * 2;
-    float dfg = pf[0], dig = pf[1];
-    for (int s = 1; s < S; ++s) {
-      dfg = __fadd_rn(dfg, pf[2 * s]);
-      dig = __fadd_rn(dig, pf[2 * s + 1]);
+  __syncthreads();
+  // W_jr = exp(lf summed over (r, j] + li_r), one column a thread
+  for (int r = tid; r < kL; r += kThreads) {
+    float acc = 0.f;
+    for (int j = 0; j < kL; ++j) {
+      if (j > r) acc = __fadd_rn(acc, lf[j]);
+      Wm[j * kLp + r] = (j >= r && j < len && r < len)
+                            ? expf(__fadd_rn(acc, li[r])) : 0.f;
     }
-    const float dm_tot = __fsub_rn(__fsub_rn(dm, __fmul_rn(dig, i_g)),
-                                   __fmul_rn(dfg, f_g));
-    di[gi] = __fadd_rn(__fmul_rn(dig, i_g),
-                       __fmul_rn(dm_tot, max_share(ig[gi], a)));
-    dm = __fadd_rn(__fmul_rn(dfg, f_g), __fmul_rn(dm_tot, max_share(a, ig[gi])));
-    df[gi] = dm;
   }
-  dm0[idx] = dm;
+  // q_j . n_c and dh_j . h_j, a warp a step
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int j = warp; j < len; j += kThreads / 32) {
+    const size_t o = geo.seq(b, c0 + j, head);
+    float x = 0.f, y = 0.f;
+    for (int i = lane; i < HD; i += 32) {
+      x = __fmaf_rn(a.q[o + i], nb[i], x);
+      y = __fmaf_rn(a.dhs[o + i], a.hs[o + i], y);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+      y = __fadd_rn(y, __shfl_xor_sync(0xffffffffu, y, off));
+    }
+    if (lane == 0) {
+      sq[j] = x;
+      hd_[j] = y;
+    }
+  }
+  __syncthreads();
+  // S = Q K^T, then W * S
+  for (int rb = 0; rb < kL; rb += kM) {
+    for (int cb = 0; cb < kL; cb += kN) {
+      Tile<kM> acc;
+      acc.zero();
+      gemm<kM, true, true>(
+          acc, As, Bs, HD,
+          [&](int p, int i) {
+            return rb + i < len && p < HD
+                       ? ld4(a.q + geo.seq(b, c0 + rb + i, head) + p)
+                       : zero4();
+          },
+          [&](int p, int j) {
+            return cb + j < len && p < HD
+                       ? ld4(a.k + geo.seq(b, c0 + cb + j, head) + p)
+                       : zero4();
+          });
+#pragma unroll
+      for (int e = 0; e < Tile<kM>::kE; ++e) {
+        const int j = rb + acc.row(e), r = cb + acc.col(e);
+        if (r < kL) {
+          const float x = __fmul_rn(Wm[j * kLp + r], acc.v[e]);
+          Xm[j * kLp + r] = x;
+          ws[j * kL + r] = x;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // s, den, ds, e: row sums in column order
+  for (int j = tid; j < kL; j += kThreads) {
+    if (j >= len) {
+      den[j] = 1.f;
+      ds[j] = 0.f;
+      continue;
+    }
+    float s = 0.f;
+    for (int r = 0; r <= j; ++r) s = __fadd_rn(s, Xm[j * kLp + r]);
+    s = __fadd_rn(__fmul_rn(al[j], sq[j]), s);
+    const float dn = fmaxf(fabsf(s), 1.f);
+    const float dsv = __fmul_rn(__fmul_rn(__fdiv_rn(-hd_[j], dn), sign_of(s)),
+                                max_share(fabsf(s), 1.f));
+    den[j] = dn;
+    ds[j] = dsv;
+    sc[kSden * T + c0 + j] = dn;
+    sc[kSds * T + c0 + j] = dsv;
+    sc[kSe * T + c0 + j] = __fadd_rn(hd_[j], __fmul_rn(dsv, s));
+  }
+  __syncthreads();
+  // dnum = dh / den for the passes after this one, laid out as dh
+  float* dnum = a.scratch + geo.dnum;
+  for (int e = tid; e < len * HD; e += kThreads) {
+    const size_t o = geo.seq(b, c0 + e / HD, head) + e % HD;
+    dnum[o] = __fdiv_rn(a.dhs[o], den[e / HD]);
+  }
+  __syncthreads();
+  // D = dnum V^T, then W * (D + ds)
+  for (int rb = 0; rb < kL; rb += kM) {
+    for (int cb = 0; cb < kL; cb += kN) {
+      Tile<kM> acc;
+      acc.zero();
+      gemm<kM, true, true>(
+          acc, As, Bs, HD,
+          [&](int p, int i) {
+            return rb + i < len && p < HD
+                       ? ld4(dnum + geo.seq(b, c0 + rb + i, head) + p)
+                       : zero4();
+          },
+          [&](int p, int jj) {
+            return cb + jj < len && p < HD
+                       ? ld4(a.v + geo.seq(b, c0 + cb + jj, head) + p)
+                       : zero4();
+          });
+#pragma unroll
+      for (int e = 0; e < Tile<kM>::kE; ++e) {
+        const int j = rb + acc.row(e), r = cb + acc.col(e);
+        if (r < kL)
+          wp[j * kL + r] =
+              __fmul_rn(Wm[j * kLp + r], __fadd_rn(acc.v[e], ds[j]));
+      }
+    }
+  }
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, const float* ig,
-           const float* fg, const float* c0, const float* n0,
-           const float* m0, const float* hs, const float* dhs,
-           const float* dc_t, const float* dn_t, const float* dm_t,
-           float* ckpt_c, float* ckpt_nm, float* stash, float* part_qk,
-           float* part_fi, float* scal, float* dq, float* dk, float* dv,
-           float* di, float* df, float* dc0, float* dn0, float* dm0, int B,
-           int T, int H, cudaStream_t stream) {
-  using G = Geo<HD>;
-  auto hdot = mlstm_bwd_hdot<HD>;
-  const int warps = B * T * H;
-  APEX_LAUNCH(hdot, dim3((warps + kWarps - 1) / kWarps), dim3(kThreads), 0,
-              stream, hs, dhs, scal, B, T, H);
+// ---------------------------------------------------------------------------
+// 4. pass 2: the carried gradients [dC; dn] at each chunk's end, in reverse
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    mlstm_bwd_carry(Args a, Geo geo) {
+  __shared__ __align__(16) float As[2 * kBuf], Bs[2 * kBuf];
+  __shared__ float red[kThreads / 32];
+  const int bh = blockIdx.z, b = bh / geo.H, head = bh % geo.H;
+  const int HD = geo.HD, T = geo.T, tid = threadIdx.x;
+  const int r0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
+  const int tile = blockIdx.x * geo.ct + blockIdx.y;
+  const float* sc = a.scratch + geo.sc + (size_t)bh * kSlots * T;
+  const size_t st = (size_t)(HD + 1) * HD;
+  const float* bnd = a.scratch + geo.bnd + (size_t)bh * (geo.nck + 1) * st;
+  float* ebnd = a.scratch + geo.ebnd + (size_t)bh * geo.nck * st;
+  float* pp = a.scratch + geo.pp + (size_t)bh * geo.nck * geo.rt * geo.ct;
+  const float* dnum = a.scratch + geo.dnum;
+  using TL = Tile<64>;
+  constexpr int N = TL::kRun;
+  TL acc;
+  acc.zero();
+#pragma unroll
+  for (int e = 0; e < TL::kE; e += N) {
+    const int r = r0 + acc.row(e), c = k0 + acc.col(e);
+    if (r < HD && c < HD && a.dc_t != nullptr)
+      get_run<N>(a.dc_t + ((size_t)bh * HD + r) * HD + c, acc.v + e);
+    else if (r == HD && c < HD && a.dn_t != nullptr)
+      get_run<N>(a.dn_t + (size_t)bh * HD + c, acc.v + e);
+  }
+  for (int c = geo.nck - 1; c >= 0; --c) {
+    const int c0 = c * kL, len = min(kL, T - c0);
+    float part = 0.f;
+    const float* nxt = bnd + (size_t)(c + 1) * st;
+    float* dst = ebnd + (size_t)c * st;
+#pragma unroll
+    for (int e = 0; e < TL::kE; e += N) {
+      const int r = r0 + acc.row(e), col = k0 + acc.col(e);
+      if (r <= HD && col < HD) {
+        float w[N];
+        put_run<N>(dst + (size_t)r * HD + col, acc.v + e);
+        get_run<N>(nxt + (size_t)r * HD + col, w);
+#pragma unroll
+        for (int q = 0; q < N; ++q) part = __fmaf_rn(acc.v[e + q], w[q], part);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
+    if ((tid & 31) == 0) red[tid >> 5] = part;
+    __syncthreads();
+    if (tid == 0) {
+      float s = red[0];
+      for (int w = 1; w < kThreads / 32; ++w) s = __fadd_rn(s, red[w]);
+      pp[(size_t)c * geo.rt * geo.ct + tile] = s;
+    }
+    const float alast = sc[kSal * T + c0 + len - 1];
+#pragma unroll
+    for (int e = 0; e < TL::kE; ++e) acc.v[e] = __fmul_rn(alast, acc.v[e]);
+    gemm<64, false, false>(
+        acc, As, Bs, len,
+        [&](int p, int i) {
+          const int r = r0 + i, t = c0 + p;
+          if (p >= len || r > HD) return zero4();
+          const float al = sc[kSal * T + t];
+          return r < HD ? scale4(al, ld4(dnum + geo.seq(b, t, head) + r))
+                        : first4(__fmul_rn(al, sc[kSds * T + t]));
+        },
+        [&](int p, int j) {
+          const int col = k0 + j;
+          return p < len && col < HD
+                     ? ld4(a.q + geo.seq(b, c0 + p, head) + col) : zero4();
+        });
+  }
+#pragma unroll
+  for (int e = 0; e < TL::kE; e += N) {
+    const int r = r0 + acc.row(e), c = k0 + acc.col(e);
+    if (r < HD && c < HD)
+      put_run<N>(a.dc0 + ((size_t)bh * HD + r) * HD + c, acc.v + e);
+    else if (r == HD && c < HD)
+      put_run<N>(a.dn0 + (size_t)bh * HD + c, acc.v + e);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 5. intra: dq, dk, dv of M steps x 64 columns of one chunk, and X's part
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    mlstm_bwd_intra(Args a, Geo geo) {
+  // the staged slices; after the dk products, dk's tile (kM x (kN + 1))
+  __shared__ __align__(16) float stage_s[4 * kBuf];
+  __shared__ float rowf[kM];
+  float* As = stage_s;
+  float* Bs = stage_s + 2 * kBuf;
+  float* dkt = stage_s;
+  static_assert(kM * (kN + 1) <= 4 * kBuf, "dk's tile fits the slices");
+  // (chunk, row, head) on x: T / L x B x H may pass 65535
+  const int c = blockIdx.x % geo.nck, bh = blockIdx.x / geo.nck;
+  const int rb = blockIdx.y * kM, ctile = blockIdx.z;
+  const int b = bh / geo.H, head = bh % geo.H;
+  const int HD = geo.HD, T = geo.T, tid = threadIdx.x;
+  const int c0 = c * kL, len = min(kL, T - c0), k0 = ctile * 64;
+  if (rb >= len) return;
+  const float* sc = a.scratch + geo.sc + (size_t)bh * kSlots * T;
+  const size_t st = (size_t)(HD + 1) * HD;
+  const float* bc =
+      a.scratch + geo.bnd + ((size_t)bh * (geo.nck + 1) + c) * st;
+  const float* ec = a.scratch + geo.ebnd + ((size_t)bh * geo.nck + c) * st;
+  const float* wp =
+      a.scratch + geo.wps + ((size_t)bh * geo.nck + c) * 2 * kL * kL;
+  const float* ws = wp + kL * kL;
+  float* px = a.scratch + geo.px + ((size_t)bh * geo.ct + ctile) * T;
+  const float* dnum = a.scratch + geo.dnum;
+  auto dnum1 = [&](int t, int x) {      // [dh / den, ds], x..x+3
+    return x < HD ? ld4(dnum + geo.seq(b, t, head) + x)
+                  : first4(sc[kSds * T + t]);
+  };
+  auto store = [&](Tile<kM>& acc, float* out) {
+    constexpr int N = Tile<kM>::kRun;
+#pragma unroll
+    for (int e = 0; e < Tile<kM>::kE; e += N) {
+      const int j = rb + acc.row(e), col = k0 + acc.col(e);
+      if (j < len && col < HD)
+        put_run<N>(out + geo.seq(b, c0 + j, head) + col, acc.v + e);
+    }
+  };
+  auto load_rows = [&](int slot) {
+    __syncthreads();
+    for (int j = tid; j < kM; j += kThreads)
+      rowf[j] = rb + j < len ? sc[slot * T + c0 + rb + j] : 0.f;
+    __syncthreads();
+  };
+  Tile<kM> acc;
+  // dq = alpha [dnum, ds] B_c + WP K
+  acc.zero();
+  gemm<kM, true, false>(
+      acc, As, Bs, HD + 1,
+      [&](int p, int i) {
+        return rb + i < len && p <= HD ? dnum1(c0 + rb + i, p) : zero4();
+      },
+      [&](int p, int j) {
+        return p <= HD && k0 + j < HD ? ld4(bc + (size_t)p * HD + k0 + j)
+                                      : zero4();
+      });
+  load_rows(kSal);
+  acc.scale_rows(rowf);
+  gemm<kM, true, false>(
+      acc, As, Bs, len,
+      [&](int p, int i) {   // WP is 0 past the chunk's length
+        return rb + i < len ? ld4(wp + (rb + i) * kL + p) : zero4();
+      },
+      [&](int p, int j) {
+        return p < len && k0 + j < HD
+                   ? ld4(a.k + geo.seq(b, c0 + p, head) + k0 + j) : zero4();
+      });
+  store(acc, a.dq);
+  // dk = w ([V, 1] E_c) + WP^T Q
+  acc.zero();
+  gemm<kM, true, false>(
+      acc, As, Bs, HD + 1,
+      [&](int p, int i) {
+        if (rb + i >= len || p > HD) return zero4();
+        return p < HD ? ld4(a.v + geo.seq(b, c0 + rb + i, head) + p)
+                      : first4(1.f);
+      },
+      [&](int p, int j) {
+        return p <= HD && k0 + j < HD ? ld4(ec + (size_t)p * HD + k0 + j)
+                                      : zero4();
+      });
+  load_rows(kSw);
+  acc.scale_rows(rowf);
+  gemm<kM, false, false>(
+      acc, As, Bs, len,
+      [&](int p, int i) { return ld4(wp + p * kL + rb + i); },
+      [&](int p, int j) {
+        return p < len && k0 + j < HD
+                   ? ld4(a.q + geo.seq(b, c0 + p, head) + k0 + j) : zero4();
+      });
+  store(acc, a.dk);
+  // X_j's part over these columns: dk_j . k_j in column order
+#pragma unroll
+  for (int e = 0; e < Tile<kM>::kE; ++e)
+    dkt[acc.row(e) * (kN + 1) + acc.col(e)] = acc.v[e];
+  __syncthreads();
+  for (int j = tid; j < kM; j += kThreads) {
+    if (rb + j >= len) continue;
+    const size_t o = geo.seq(b, c0 + rb + j, head);
+    float x = 0.f;
+    for (int i = 0; i < kN && k0 + i < HD; ++i)
+      x = __fmaf_rn(dkt[j * (kN + 1) + i], a.k[o + k0 + i], x);
+    px[c0 + rb + j] = x;
+  }
+  __syncthreads();   // dk's tile is read: the slices may be refilled
+  // dv = w (K dC_c^T) + WS^T dnum
+  acc.zero();
+  gemm<kM, true, true>(
+      acc, As, Bs, HD,
+      [&](int p, int i) {
+        return rb + i < len && p < HD
+                   ? ld4(a.k + geo.seq(b, c0 + rb + i, head) + p) : zero4();
+      },
+      [&](int p, int j) {
+        return p < HD && k0 + j < HD ? ld4(ec + (size_t)(k0 + j) * HD + p)
+                                     : zero4();
+      });
+  acc.scale_rows(rowf);   // still w
+  gemm<kM, false, false>(
+      acc, As, Bs, len,
+      [&](int p, int i) { return ld4(ws + p * kL + rb + i); },
+      [&](int p, int j) {
+        return p < len && k0 + j < HD ? dnum1(c0 + p, k0 + j) : zero4();
+      });
+  store(acc, a.dv);
+}
+
+// ---------------------------------------------------------------------------
+// 6. gates_bwd: Y per chunk, then m's chain in reverse; one warp a (row, head)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+    mlstm_bwd_gates(Args a, Geo geo) {
+  const int bh = blockIdx.x, b = bh / geo.H, head = bh % geo.H;
+  const int lane = threadIdx.x, T = geo.T;
+  float* sc = a.scratch + geo.sc + (size_t)bh * kSlots * T;
+  const float* pp =
+      a.scratch + geo.pp + (size_t)bh * geo.nck * geo.rt * geo.ct;
+  const float* px = a.scratch + geo.px + (size_t)bh * geo.ct * T;
+  float* xs = sc + kSal * T;    // alpha and w are spent: X and Y go there
+  float* ys = sc + kSw * T;
+  const int tiles = geo.rt * geo.ct;
+  for (int c = lane; c < geo.nck; c += 32) {
+    const int c0 = c * kL, c1 = min(T, c0 + kL);
+    float p = pp[(size_t)c * tiles];
+    for (int i = 1; i < tiles; ++i) p = __fadd_rn(p, pp[(size_t)c * tiles + i]);
+    float suf = 0.f;
+    for (int t = c1 - 1; t >= c0; --t) {
+      float x = px[t];
+      for (int i = 1; i < geo.ct; ++i) x = __fadd_rn(x, px[(size_t)i * T + t]);
+      suf = __fadd_rn(suf, __fsub_rn(sc[kSe * T + t], x));
+      xs[t] = x;
+      ys[t] = expf(sc[kSlf * T + t]) == 0.f ? 0.f : __fadd_rn(p, suf);
+    }
+  }
+  __syncwarp();
+  const float m_first = a.m0[bh];
+  auto wa_at = [&](int t) {
+    const size_t gi = geo.gate(b, t, head);
+    const float mp = t == 0 ? m_first : sc[kSm * T + t - 1];
+    return max_share(__fadd_rn(a.fg[gi], mp), a.ig[gi]);
+  };
+  const int seg = cdiv(T, 32), t0 = min(T, lane * seg),
+            t1 = min(T, t0 + seg);
+  // the segment's map dm -> A dm + Bc over its steps in reverse
+  float A = 1.f, Bc = 0.f;
+  for (int t = t1 - 1; t >= t0; --t) {
+    const float wa = wa_at(t);
+    const float cst = __fsub_rn(ys[t], __fmul_rn(wa, __fadd_rn(xs[t], ys[t])));
+    Bc = __fadd_rn(__fmul_rn(wa, Bc), cst);
+    A = __fmul_rn(wa, A);
+  }
+  // inclusive scan from the last lane down: the later map first
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float ao = __shfl_down_sync(0xffffffffu, A, off);
+    const float bo = __shfl_down_sync(0xffffffffu, Bc, off);
+    if (lane + off < 32) {
+      Bc = __fadd_rn(__fmul_rn(A, bo), Bc);
+      A = __fmul_rn(A, ao);
+    }
+  }
+  const float ae = __shfl_down_sync(0xffffffffu, A, 1);
+  const float be = __shfl_down_sync(0xffffffffu, Bc, 1);
+  const float dm_last = a.dm_t != nullptr ? a.dm_t[bh] : 0.f;
+  float dm = lane == 31 ? dm_last : __fadd_rn(__fmul_rn(ae, dm_last), be);
+  for (int t = t1 - 1; t >= t0; --t) {
+    const size_t gi = geo.gate(b, t, head);
+    const float wa = wa_at(t);
+    const float dm_tot = __fsub_rn(__fsub_rn(dm, xs[t]), ys[t]);
+    a.di[gi] = __fadd_rn(xs[t], __fmul_rn(dm_tot, __fsub_rn(1.f, wa)));
+    dm = __fadd_rn(ys[t], __fmul_rn(dm_tot, wa));
+    a.df[gi] = dm;
+  }
+  if (lane == 0) a.dm0[bh] = dm;
+}
+
+int launch(const Args& a, const Geo& geo, cudaStream_t stream) {
+  const int bh = geo.B * geo.H;
+  APEX_LAUNCH(mlstm_bwd_gates_fwd, dim3(bh), dim3(32), 0, stream, a, geo);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  auto walk = mlstm_bwd_walk<HD>;
+  APEX_LAUNCH(mlstm_bwd_bounds, dim3(geo.rt, geo.ct, bh), dim3(kThreads), 0,
+              stream, a, geo);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kBytes);
+        mlstm_bwd_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kChunkSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  APEX_LAUNCH(walk, dim3(G::kSlabs, H, B), dim3(kThreads), G::kBytes,
-              stream, q, k, v, ig, fg, c0, n0, m0, dhs, dc_t, dn_t, ckpt_c,
-              ckpt_nm, stash, part_qk, part_fi, scal, dv, dc0, dn0, B, T, H);
+  APEX_LAUNCH(mlstm_bwd_chunk, dim3(geo.nck, bh), dim3(kThreads), kChunkSmem,
+              stream, a, geo);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const size_t seq = (size_t)B * T * H * HD;
-  APEX_LAUNCH(mlstm_bwd_reduce, dim3((unsigned)((seq + 255) / 256)),
-              dim3(256), 0, stream, part_qk, dq, dk, seq, G::kSlabs);
+  APEX_LAUNCH(mlstm_bwd_carry, dim3(geo.rt, geo.ct, bh), dim3(kThreads), 0,
+              stream, a, geo);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  APEX_LAUNCH(mlstm_bwd_gates, dim3((B * H + 63) / 64), dim3(64), 0, stream,
-              ig, fg, m0, dm_t, part_fi, scal, di, df, dm0, B, T, H,
-              G::kSlabs);
+  APEX_LAUNCH(mlstm_bwd_intra, dim3(geo.nck * bh, kL / kM, geo.ct),
+              dim3(kThreads), 0, stream, a, geo);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  APEX_LAUNCH(mlstm_bwd_gates, dim3(bh), dim3(32), 0, stream, a, geo);
   return 0;
 }
 
 }  // namespace
 
-extern "C" int apex_mlstm_scan_bwd_chunk() { return kChunk; }
-extern "C" int apex_mlstm_scan_bwd_rows() { return kRows; }
+extern "C" int apex_mlstm_scan_bwd_chunk() { return kL; }
+
+extern "C" long long apex_mlstm_scan_bwd_scratch_floats(int B, int T, int H,
+                                                        int HD) {
+  return (long long)Geo(B, T, H, HD).total;
+}
 
 extern "C" int apex_mlstm_scan_bwd(
     const void* q, const void* k, const void* v, const void* i_pre,
     const void* f_pre, const void* cmat0, const void* n0, const void* m0,
     const void* hs, const void* dhs, const void* dc_t, const void* dn_t,
-    const void* dm_t, void* ckpt_c, void* ckpt_nm, void* stash,
-    void* part_qk, void* part_fi, void* scal, void* dq, void* dk, void* dv,
-    void* di, void* df, void* dc0, void* dn0, void* dm0, int B, int T, int H,
-    int HD, void* stream) {
+    const void* dm_t, void* scratch, void* dq, void* dk, void* dv, void* di,
+    void* df, void* dc0, void* dn0, void* dm0, int B, int T, int H, int HD,
+    void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dhs) % 16 != 0)
-    return (int)cudaErrorMisalignedAddress;
-  const cudaStream_t st = (cudaStream_t)stream;
-#define APEX_MLSTM_BWD_ARGS                                                   \
-  (const float*)q, (const float*)k, (const float*)v, (const float*)i_pre,     \
-      (const float*)f_pre, (const float*)cmat0, (const float*)n0,             \
-      (const float*)m0, (const float*)hs, (const float*)dhs,                  \
-      (const float*)dc_t, (const float*)dn_t, (const float*)dm_t,             \
-      (float*)ckpt_c, (float*)ckpt_nm, (float*)stash, (float*)part_qk,        \
-      (float*)part_fi, (float*)scal, (float*)dq, (float*)dk, (float*)dv,      \
-      (float*)di, (float*)df, (float*)dc0, (float*)dn0, (float*)dm0, B, T, H, \
-      st
-  int rc;
-  switch (HD) {
-    case 32:
-      rc = launch<32>(APEX_MLSTM_BWD_ARGS);
-      break;
-    case 64:
-      rc = launch<64>(APEX_MLSTM_BWD_ARGS);
-      break;
-    case 384:
-      rc = launch<384>(APEX_MLSTM_BWD_ARGS);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef APEX_MLSTM_BWD_ARGS
+  if (HD != 32 && HD != 64 && HD != 384) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)scratch % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  Args a{(const float*)q,    (const float*)k,    (const float*)v,
+         (const float*)i_pre, (const float*)f_pre, (const float*)cmat0,
+         (const float*)n0,   (const float*)m0,   (const float*)hs,
+         (const float*)dhs,  (const float*)dc_t, (const float*)dn_t,
+         (const float*)dm_t, (float*)scratch,    (float*)dq,
+         (float*)dk,         (float*)dv,         (float*)di,
+         (float*)df,         (float*)dc0,        (float*)dn0,
+         (float*)dm0};
+  const int rc = launch(a, Geo(B, T, H, HD), (cudaStream_t)stream);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -20,18 +20,42 @@
 // bytes (gates_x read once, hs written once) are far below what the card
 // moves in that time.  One head's R is 288 KB in bf16, more than an SM
 // holds, so the design spreads a head over a thread-block cluster:
-//   * a cluster of 4 CTAs per (row, head); CTA q owns units [q hd/4,
-//     (q+1) hd/4) and their 4 gates: hd of R's 4 hd columns.  A thread
-//     owns one column and half of its hd inputs, converted to fp32 once
-//     and kept in registers for the whole walk (hd/2 values: 96 at hd
-//     192), so R is read from device memory once per call;
+//   * a cluster of APEX_SLSTM_CLUSTER CTAs (4 or 8) per (row, head); CTA
+//     q owns units [q U, (q+1) U), U = hd / cluster, and their 4 gates.
+//     A thread owns one column of R and half of its hd inputs, converted
+//     to fp32 once and kept in registers for the whole walk (hd/2 values:
+//     96 at hd 192).  R arrives once per call: the CTA's columns are
+//     copied into shared memory by cp.async (whole rows of U columns, in
+//     16-byte pieces where U allows) and each thread moves its column
+//     into registers from there (APEX_SLSTM_STAGE_R 0: strided loads from
+//     device memory, the first design's way; 2: R handed over already
+//     packed in the threads' order, [head][cta][input][thread], so each
+//     load of a warp is 32 adjacent values -- a copy the caller would
+//     make once per weight version);
 //   * h_{t-1} sits in every CTA's shared memory (double-buffered); a step
 //     is the thread's half-dot (four FMA chains over 16-byte broadcast
-//     loads of h), the halves added across a lane pair, the four gates of
-//     a unit gathered by warp shuffles (a unit's 8 threads are
-//     neighbours), the update computed by all 8 alike, and the new h
-//     written into all four CTAs' buffers through distributed shared
-//     memory; one cluster barrier ends the step;
+//     loads of h), the halves added across a lane pair, the gates of a
+//     unit gathered by warp shuffles (a unit's 8 threads are neighbours),
+//     the cell, and the new h sent to all CTAs of the cluster;
+//   * the cell's lanes have roles (APEX_SLSTM_ROLES 1): with i and f
+//     shuffled to every lane for m_t, one lane computes exp(i - m_t), one
+//     exp(f + m - m_t), one tanh(z) and one sigmoid(o), and four shuffles
+//     pass them on; each expression keeps its form, so its bits are the
+//     same as when every lane computes all four (APEX_SLSTM_ROLES 0);
+//   * the exchange (APEX_SLSTM_EXCHANGE 1) has no cluster barrier in the
+//     step loop.  Each CTA's two h buffers have one mbarrier each; a
+//     unit's writer lane stores its h into every CTA's next buffer with
+//     st.async, which completes 4 bytes of the receiver's mbarrier
+//     transaction; one thread of the receiver arms the barrier for hd x 4
+//     bytes a phase, and every thread waits (acquire, cluster scope) on
+//     the buffer it reads next.  Two buffers suffice: a CTA writes buffer
+//     b at step t+1 only after it has received every unit's step-t h,
+//     and each unit sends that only after its warp's step-t reads of b;
+//     the barrier's phase for step t+1's data therefore opens only after
+//     the step-t phase has completed at the receiver.  The last step
+//     sends nothing, and one cluster barrier ends the call.
+//     (APEX_SLSTM_EXCHANGE 0: distributed shared memory stores and one
+//     cluster barrier a step, the first design's way);
 //   * gates_x for this CTA's columns arrives by 16-byte cp.async in tiles
 //     of 16 steps, double-buffered, ahead of use;
 //   * sequential in T with every sum in one fixed order and written with
@@ -56,24 +80,43 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#ifndef APEX_LAUNCH
-#define APEX_LAUNCH(kernel, grid, block, smem, stream, ...) \
-  kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#ifndef APEX_SLSTM_CLUSTER
+#define APEX_SLSTM_CLUSTER 8
+#endif
+#ifndef APEX_SLSTM_EXCHANGE
+#define APEX_SLSTM_EXCHANGE 1
+#endif
+#ifndef APEX_SLSTM_ROLES
+#define APEX_SLSTM_ROLES 0
+#endif
+#ifndef APEX_SLSTM_STAGE_R
+#define APEX_SLSTM_STAGE_R 1
 #endif
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 4;   // CTAs per (row, head)
 constexpr int kTileT = 16;    // steps of gates_x per staged tile
+constexpr bool kMbar = APEX_SLSTM_EXCHANGE != 0;
+constexpr bool kRoles = APEX_SLSTM_ROLES != 0;
+constexpr int kRLoad = APEX_SLSTM_STAGE_R;   // 0 strided, 1 staged, 2 packed
 
-template <int HD>
+template <int HD, typename TR>
 struct Geo {
-  static constexpr int U = HD / kCluster;   // units per CTA
+  // the asked cluster where its CTAs keep 16-byte staging, else 4
+  static constexpr int kCl =
+      (HD / APEX_SLSTM_CLUSTER) % 4 == 0 ? APEX_SLSTM_CLUSTER : 4;
+  static constexpr int U = HD / kCl;        // units per CTA
   static constexpr int kThreads = 8 * U;    // 4 gates x 2 halves a unit
   static constexpr int kHalf = HD / 2;      // inputs per thread
   static constexpr int kCols = 4 * U;       // gate columns per CTA
+  // R's staged copy: HD rows of the CTA's 4 U columns
+  static constexpr int kSegB = U * (int)sizeof(TR);
+  static constexpr int kPiece = kSegB % 16 == 0 ? 16 : (kSegB % 8 == 0 ? 8 : 4);
+  static constexpr size_t kRBytes = kRLoad == 1
+                                        ? (size_t)HD * kCols * sizeof(TR)
+                                            : 0;
   static_assert(U % 4 == 0 && kHalf % 4 == 0, "16-byte staging");
 };
 
@@ -82,10 +125,20 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem) {
+  if constexpr (N == 16)
+    cp_async16(smem, gmem);
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(smem)), "l"(gmem), "n"(N));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -95,11 +148,55 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// mbarriers in shared memory (a CTA's own, or a peer's by its cluster
+// address)
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arm(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr,
+                                                 unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// store x at a peer's address and complete 4 bytes of its mbarrier
+__device__ __forceinline__ void st_async(unsigned addr, float x,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(x), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
 }
 
-// One step of a unit, as the plain version writes it.
+// One step of a unit, as the plain version writes it, every lane alike.
 __device__ __forceinline__ void slstm_cell(float gi, float gf, float gz,
                                            float go, float& c, float& n,
                                            float& h, float& m) {
@@ -117,9 +214,38 @@ __device__ __forceinline__ void slstm_cell(float gi, float gf, float gz,
   m = m_new;
 }
 
+// The same step with roles: lane g of the unit (base + 2 g) computes gate
+// g's transcendental, the shuffles pass them on.
+__device__ __forceinline__ void slstm_cell_roles(float pre, int g, int base,
+                                                 float& c, float& n,
+                                                 float& h, float& m) {
+  const unsigned full = 0xffffffffu;
+  const float gi = __shfl_sync(full, pre, base + 0);
+  const float gf = __shfl_sync(full, pre, base + 2);
+  const float a = __fadd_rn(gf, m);
+  const float m_new = fmaxf(a, gi);
+  float x;
+  if (g == 2) {
+    x = tanhf(pre);
+  } else {
+    x = expf(g == 0 ? __fsub_rn(gi, m_new)
+                    : (g == 1 ? __fsub_rn(a, m_new) : -pre));
+    if (g == 3) x = __fdiv_rn(1.f, __fadd_rn(1.f, x));
+  }
+  const float i_g = __shfl_sync(full, x, base + 0);
+  const float f_g = __shfl_sync(full, x, base + 2);
+  const float tz = __shfl_sync(full, x, base + 4);
+  const float so = __shfl_sync(full, x, base + 6);
+  const float c_new = __fadd_rn(__fmul_rn(f_g, c), __fmul_rn(i_g, tz));
+  const float n_new = __fadd_rn(__fmul_rn(f_g, n), i_g);
+  h = __fdiv_rn(__fmul_rn(so, c_new), fmaxf(fabsf(n_new), 1e-6f));
+  c = c_new;
+  n = n_new;
+  m = m_new;
+}
+
 template <int HD, typename TR>
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(Geo<HD>::kThreads, 1)
+__global__ void __launch_bounds__(Geo<HD, TR>::kThreads, 1)
     slstm_scan_kernel(const float* __restrict__ gx,
                       const TR* __restrict__ r,
                       const float* __restrict__ bias,
@@ -133,7 +259,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                       float* __restrict__ acts, float* __restrict__ cs,
                       float* __restrict__ ns, float* __restrict__ ms,
                       int T, int H) {
-  using G = Geo<HD>;
+  using G = Geo<HD, TR>;
+  constexpr int CL = G::kCl;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int head = blockIdx.y, b = blockIdx.z;
@@ -143,12 +270,43 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   const int col = g * HD + unit;               // within the head's 4 hd
   __shared__ __align__(16) float h_s[2][HD];
   __shared__ __align__(16) float gx_s[2][kTileT][G::kCols];
+  __shared__ __align__(8) unsigned long long bar[2];
+  extern __shared__ __align__(16) unsigned char r_s[];
 
   // this thread's column of R over its half of the inputs, in fp32
   float rw[G::kHalf];
-  const TR* rp = r + ((size_t)head * HD + half * G::kHalf) * (4 * HD) + col;
+  const TR* rh = r + (size_t)head * HD * (4 * HD);
+  if constexpr (kRLoad == 1) {
+    // the CTA's 4 U columns of every row, whole rows of U at a time
+    constexpr int kPer = G::kSegB / G::kPiece;   // pieces a segment
+    TR* rs = reinterpret_cast<TR*>(r_s);
+    for (int j = tid; j < HD * 4 * kPer; j += G::kThreads) {
+      const int row = j / (4 * kPer), rem = j % (4 * kPer);
+      const int gg = rem / kPer, pc = rem % kPer;
+      cp_async_n<G::kPiece>(
+          reinterpret_cast<unsigned char*>(rs + row * G::kCols + gg * G::U)
+              + pc * G::kPiece,
+          reinterpret_cast<const unsigned char*>(
+              rh + (size_t)row * 4 * HD + gg * HD + rank * G::U)
+              + pc * G::kPiece);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < G::kHalf; ++i) rw[i] = to_f(rp[(size_t)i * 4 * HD]);
+    for (int i = 0; i < G::kHalf; ++i)
+      rw[i] = to_f(rs[(half * G::kHalf + i) * G::kCols + g * G::U + u]);
+  } else if constexpr (kRLoad == 2) {
+    const TR* rp = rh + (size_t)rank * G::kHalf * G::kThreads + tid;
+#pragma unroll
+    for (int i = 0; i < G::kHalf; ++i)
+      rw[i] = to_f(rp[(size_t)i * G::kThreads]);
+  } else {
+    const TR* rp = rh + (size_t)half * G::kHalf * (4 * HD) + col;
+#pragma unroll
+    for (int i = 0; i < G::kHalf; ++i)
+      rw[i] = to_f(rp[(size_t)i * 4 * HD]);
+  }
   const float bcol = bias[head * 4 * HD + col];
 
   const size_t sbase = ((size_t)b * H + head) * HD;
@@ -159,6 +317,23 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   const size_t row_floats = (size_t)4 * H * HD;   // gates_x per (b, t)
   const float* gxb =
       gx + (size_t)b * T * row_floats + (size_t)head * 4 * HD + rank * G::U;
+  const unsigned bar0 = smem_addr(&bar[0]);
+  if (kMbar && tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arm(bar0, HD * 4);       // each buffer's first phase
+    mbar_arm(bar0 + 8, HD * 4);
+  }
+  // the unit's h slot and the barriers, in every CTA of the cluster
+  unsigned peer_h[CL], peer_bar[CL];
+  if (kMbar) {
+#pragma unroll
+    for (int q = 0; q < CL; ++q) {
+      peer_h[q] = cluster_addr(smem_addr(&h_s[0][unit]), q);
+      peer_bar[q] = cluster_addr(bar0, q);
+    }
+  }
 
   // tile k of this CTA's gate columns: per step 4 segments of U floats
   auto stage = [&](int k, int buf) {
@@ -175,8 +350,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 
   const int ntiles = (steps + kTileT - 1) / kTileT;
   if (ntiles > 0) stage(0, 0);
-  cluster.sync();   // every CTA runs before any writes into its memory
+  cluster.sync();   // every CTA runs (and its barriers are set up)
   int cur = 0;
+  unsigned parity[2] = {0u, 0u};
   const unsigned full = 0xffffffffu;
   const int base = (tid & 31) & ~7;            // the unit's first lane
   for (int k = 0; k < ntiles; ++k) {
@@ -190,6 +366,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     const int rows = min(kTileT, steps - k * kTileT);
     for (int s = 0; s < rows; ++s) {
       const int t = k * kTileT + s;
+      if (kMbar && t > 0) {
+        mbar_wait(bar0 + 8 * cur, parity[cur]);
+        parity[cur] ^= 1u;
+        if (tid == 0) mbar_arm(bar0 + 8 * cur, HD * 4);   // its next phase
+      }
       const float* hp = &h_s[cur][half * G::kHalf];
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
@@ -206,11 +387,15 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                                   : __fadd_rn(other, part);
       const float pre =
           __fadd_rn(__fadd_rn(gx_s[k & 1][s][g * G::U + u], rec), bcol);
-      const float gi = __shfl_sync(full, pre, base + 0);
-      const float gf = __shfl_sync(full, pre, base + 2);
-      const float gz = __shfl_sync(full, pre, base + 4);
-      const float go = __shfl_sync(full, pre, base + 6);
-      slstm_cell(gi, gf, gz, go, c, n, h, m);
+      if constexpr (kRoles) {
+        slstm_cell_roles(pre, g, base, c, n, h, m);
+      } else {
+        const float gi = __shfl_sync(full, pre, base + 0);
+        const float gf = __shfl_sync(full, pre, base + 2);
+        const float gz = __shfl_sync(full, pre, base + 4);
+        const float go = __shfl_sync(full, pre, base + 6);
+        slstm_cell(gi, gf, gz, go, c, n, h, m);
+      }
       const size_t bt = ((size_t)b * T + t) * H + head;
       if (acts != nullptr && half == 0) acts[bt * 4 * HD + col] = pre;
       if (g == 0 && half == 0) {
@@ -220,11 +405,20 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
           ns[bt * HD + unit] = n;
           ms[bt * HD + unit] = m;
         }
+        if (kMbar) {
+          if (t + 1 < steps) {
+            const unsigned off = (unsigned)((cur ^ 1) * HD * sizeof(float));
 #pragma unroll
-        for (int q = 0; q < kCluster; ++q)
-          *cluster.map_shared_rank(&h_s[cur ^ 1][unit], q) = h;
+            for (int q = 0; q < CL; ++q)
+              st_async(peer_h[q] + off, h, peer_bar[q] + 8 * (cur ^ 1));
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < CL; ++q)
+            *cluster.map_shared_rank(&h_s[cur ^ 1][unit], q) = h;
+        }
       }
-      cluster.sync();
+      if (!kMbar) cluster.sync();
       cur ^= 1;
     }
   }
@@ -236,6 +430,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     h_out[sbase + unit] = h;
     m_out[sbase + unit] = m;
   }
+  if (kMbar) cluster.sync();   // no CTA leaves while a peer may store to it
 }
 
 template <int HD, typename TR>
@@ -244,12 +439,30 @@ int launch(const float* gx, const void* r, const float* bias,
            const float* m0, const int* lens, float* hs, float* c_out,
            float* n_out, float* h_out, float* m_out, float* acts, float* cs,
            float* ns, float* ms, int B, int T, int H, cudaStream_t stream) {
+  using G = Geo<HD, TR>;
   auto kern = slstm_scan_kernel<HD, TR>;
-  APEX_LAUNCH(kern, dim3(kCluster, H, B), dim3(Geo<HD>::kThreads), 0,
-              stream, gx, (const TR*)r, bias,
-              c0, n0, h0, m0, lens, hs, c_out, n_out, h_out, m_out, acts,
-              cs, ns, ms, T, H);
-  return 0;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kRBytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G::kCl, H, B);
+  cfg.blockDim = dim3(G::kThreads);
+  cfg.dynamicSmemBytes = G::kRBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G::kCl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, gx, (const TR*)r, bias, c0, n0,
+                                 h0, m0, lens, hs, c_out, n_out, h_out,
+                                 m_out, acts, cs, ns, ms, T, H);
 }
 
 template <typename TR>

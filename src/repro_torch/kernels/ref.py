@@ -414,3 +414,144 @@ def mlstm_recurrence_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         df[:, i] = dm
         dcmat, dn = f_g[..., None, None] * dc_new, f_g[..., None] * dn_new
     return dq, dk, dv, di, df, dcmat, dn, dm
+
+
+def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, i_pre: torch.Tensor,
+                            f_pre: torch.Tensor, cmat0: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor,
+                            hs: torch.Tensor, dhs: torch.Tensor,
+                            dstate: Tuple[Optional[torch.Tensor], ...]
+                            = (None, None, None), chunk: int = 64):
+    """``mlstm_recurrence_bwd_ref`` in the chunkwise-parallel form its
+    kernel (``csrc/mlstm_scan_bwd.cu``) computes: the same arguments and
+    results, the arithmetic regrouped into products over chunks of
+    ``chunk`` steps.  Only the tests call it; it proves the algebra.
+
+    With m_t the stabiliser after step t, each step's forget and input
+    gates are exp(lf_t) and exp(li_t), lf_t = f_t + m_{t-1} - m_t and
+    li_t = i_t - m_t, both <= 0.  Inside a chunk, G_j is the sum of lf
+    over its steps up to j, alpha_j = exp(G_j) the decay from the
+    chunk's start, w_j = exp(G_last - G_j + li_j) the weight of step j's
+    update at the chunk's end and W_jr = exp(G_j - G_r + li_r) (r <= j)
+    that of step r's update at step j; every exponent is <= 0 and is
+    summed over its own span of steps.  The
+    memory and the normaliser travel together as one (hd + 1, hd)
+    matrix [C; n] (v extended by a 1), their gradients as [dC; dn] (dnum
+    = dh / den extended by ds):
+      1. boundaries: B_{c+1} = alpha_last B_c + [V; 1]^T diag(w) K;
+      2. per chunk: s_j = alpha_j q_j . n_c + sum_r W_jr q_j . k_r, den,
+         ds; P = dnum V^T + ds, WP = W * P, WS = W * Q K^T;
+      3. carried gradients: E_{c-1} = alpha_last E_c + (alpha [dnum,
+         ds])^T Q, from E_last = the final state's gradient;
+      4. per chunk: dq = alpha [dnum, ds] B_c + WP K, dk = w ([V, 1] E_c)
+         + WP^T Q, dv = w (K dC_c^T) + WS^T dnum;
+      5. the gates: X_j = dk_j . k_j is di_g i_g; Y_j = df_g f_g = <E_c,
+         B_{c+1}> + sum_{s >= j in the chunk} (dh_s . h_s + ds_s s_s -
+         X_s), 0 where f_g is 0; then m's chain in reverse,
+         dm_{t-1} = Y + w_a (dm - X - Y)
+         (``maximum``: half each on a tie)."""
+    b, t, nh, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qh, kh, vh, hh, dhh = (x.float().transpose(1, 2) for x in
+                           (q, k, v, hs, dhs))                # (B,H,T,hd)
+    ih, fh = i_pre.float().transpose(1, 2), f_pre.float().transpose(1, 2)
+    # the stabiliser's max-plus chain and each step's log gates
+    m = m0.float()
+    m_prev, lf, li, w_a = [], [], [], []
+    for i in range(t):
+        a = fh[..., i] + m
+        m_new = torch.maximum(a, ih[..., i])
+        m_prev.append(m)
+        lf.append(a - m_new)
+        li.append(ih[..., i] - m_new)
+        w_a.append(_max_weights(a, ih[..., i])[0])
+        m = m_new
+    lf, li, w_a = (torch.stack(x, -1) for x in (lf, li, w_a))   # (B,H,T)
+    bounds = [(c0, min(c0 + chunk, t)) for c0 in range(0, t, chunk)]
+    ones = torch.ones((b, nh, t, 1), **f32)
+    v1 = torch.cat([vh, ones], -1)                             # [V, 1]
+
+    def gates(c0, c1):
+        # the log decays as sums of lf over each span itself (never as a
+        # difference of prefix sums: a first step's lf of ~-1e30 from m0
+        # = -1e30 would swallow every later lf of a prefix sum)
+        lfc, li_c = lf[..., c0:c1], li[..., c0:c1]
+        n = c1 - c0
+        idx = torch.arange(n, device=q.device)
+        span = (idx[None, :, None] < idx[None, None, :]) \
+            & (idx[None, None, :] <= idx[:, None, None])      # (j, r, p)
+        lw = torch.where(span, lfc[..., None, None, :], 0.0).sum(-1)
+        big_w = torch.where(idx[None, :] <= idx[:, None],
+                            torch.exp(lw + li_c[..., None, :]), 0.0)
+        head = torch.where(idx[None, :] <= idx[:, None],
+                           lfc[..., None, :], 0.0).sum(-1)
+        return torch.exp(head), big_w[..., -1, :], big_w
+
+    # 1. the boundary memories [C; n] before each chunk and at the end
+    bnd = [torch.cat([cmat0.float(), n0.float()[..., None, :]], -2)]
+    for c0, c1 in bounds:
+        alpha, w, _ = gates(c0, c1)
+        upd = torch.einsum("bhsv,bhsk->bhvk", w[..., None] * v1[..., c0:c1, :],
+                           kh[..., c0:c1, :])
+        bnd.append(alpha[..., -1, None, None] * bnd[-1] + upd)
+    # 2. per chunk: the normaliser's dot, den, ds and the masked products
+    per = []
+    for c, (c0, c1) in enumerate(bounds):
+        alpha, w, big_w = gates(c0, c1)
+        qc, kc, vc = qh[..., c0:c1, :], kh[..., c0:c1, :], vh[..., c0:c1, :]
+        s_qk = qc @ kc.transpose(-1, -2)
+        s = alpha * (qc @ bnd[c][..., hd, :, None])[..., 0] \
+            + (big_w * s_qk).sum(-1)
+        den = torch.clamp(s.abs(), min=1.0)
+        hdot = (dhh[..., c0:c1, :] * hh[..., c0:c1, :]).sum(-1)
+        w_abs, _ = _max_weights(s.abs(), torch.ones_like(s))
+        ds = -hdot / den * torch.sign(s) * w_abs
+        dnum = dhh[..., c0:c1, :] / den[..., None]
+        wp = big_w * (dnum @ vc.transpose(-1, -2) + ds[..., None])
+        per.append((alpha, w, torch.cat([dnum, ds[..., None]], -1), wp,
+                    big_w * s_qk, hdot + ds * s))
+    # 3. the carried gradients [dC; dn] at each chunk's end
+    zero = torch.zeros((b, nh), **f32)
+    fin = [torch.zeros_like(x) if g is None else g.float()
+           for x, g in zip((cmat0, n0, zero), dstate)]
+    carry = torch.cat([fin[0], fin[1][..., None, :]], -2)
+    ends, p_c = [None] * len(bounds), [None] * len(bounds)
+    for c in reversed(range(len(bounds))):
+        c0, c1 = bounds[c]
+        alpha, _, dnum1 = per[c][:3]
+        ends[c] = carry
+        p_c[c] = (carry * bnd[c + 1]).sum((-2, -1))
+        carry = alpha[..., -1, None, None] * carry + torch.einsum(
+            "bhsv,bhsk->bhvk", alpha[..., None] * dnum1, qh[..., c0:c1, :])
+    # 4. the intra-chunk gradients, every chunk alike
+    dq, dk, dv = (torch.empty((b, nh, t, hd), **f32) for _ in range(3))
+    x_g = torch.empty((b, nh, t), **f32)
+    y_g = torch.empty((b, nh, t), **f32)
+    for c, (c0, c1) in enumerate(bounds):
+        alpha, w, dnum1, wp, ws, e = per[c]
+        qc, kc = qh[..., c0:c1, :], kh[..., c0:c1, :]
+        dq[..., c0:c1, :] = alpha[..., None] * (dnum1 @ bnd[c]) + wp @ kc
+        dk[..., c0:c1, :] = w[..., None] * (v1[..., c0:c1, :] @ ends[c]) \
+            + wp.transpose(-1, -2) @ qc
+        dv[..., c0:c1, :] = w[..., None] * (kc @ ends[c][..., :hd, :]
+                                            .transpose(-1, -2)) \
+            + ws.transpose(-1, -2) @ dnum1[..., :hd]
+        x = (dk[..., c0:c1, :] * kc).sum(-1)
+        x_g[..., c0:c1] = x
+        # where f_g is 0 (m0 = -1e30, or a reset far above a), df_g f_g
+        # is 0 exactly, not the sum's rounding
+        y_g[..., c0:c1] = torch.where(
+            lf[..., c0:c1].exp() == 0, 0.0, p_c[c][..., None] + torch.flip(
+                torch.cumsum(torch.flip(e - x, [-1]), -1), [-1]))
+    # 5. the stabiliser's chain in reverse
+    dm = fin[2]
+    di, df = torch.empty((b, nh, t), **f32), torch.empty((b, nh, t), **f32)
+    for i in reversed(range(t)):
+        dm_tot = dm - x_g[..., i] - y_g[..., i]
+        wa = w_a[..., i]
+        di[..., i] = x_g[..., i] + dm_tot * (1.0 - wa)
+        dm = y_g[..., i] + dm_tot * wa
+        df[..., i] = dm
+    back = [x.transpose(1, 2).contiguous() for x in (dq, dk, dv, di, df)]
+    return (*back, carry[..., :hd, :], carry[..., hd, :], dm)

@@ -7,19 +7,23 @@ They replace no Pallas kernel: the reference runs each recurrence as one
 at ``:209``; the mLSTM's at ``:369``, its cell at ``:285``), and the
 port ran them as Python loops of ~15-20 PyTorch ops a step.
 
-  * sLSTM: a cluster of four CTAs per (row, head), each holding the
-    recurrent gates' columns of a quarter of the head's units in
-    registers; each step every CTA computes its units' four gates and
-    the update and writes its new h into all four CTAs' shared memory
-    (distributed shared memory), then the cluster meets at one barrier.
-    The backward walks T in reverse over the states the forward saved
-    and reduces dh_{t-1} = R . dgates_t across the cluster the same way.
+  * sLSTM: a cluster of eight CTAs per (row, head) (four at head_dim
+    16), each holding the recurrent gates' columns of its units in
+    registers (staged once per call through shared memory); each step
+    every CTA computes its units' four gates and the update and stores
+    its new h into every CTA's next buffer with st.async, which
+    completes an mbarrier's transaction there: no cluster barrier in the
+    step loop.  The backward walks T in reverse over the states the
+    forward saved and reduces dh_{t-1} = R . dgates_t across its cluster.
   * mLSTM: a CTA owns a slab of 32 v-rows of one (row, head)'s matrix
     memory in registers across the whole walk and recomputes the
-    head's normaliser itself; no exchange between CTAs.  The backward
-    recomputes the memory from checkpoints every 16 steps and writes
-    per-slab partials of dq, dk and the gates' sums, summed in a fixed
-    order by a second pass (no atomics: bitwise on repeat).
+    head's normaliser itself; no exchange between CTAs.  The backward is
+    chunkwise-parallel (``ref.mlstm_chunkwise_bwd_ref``'s algebra): the
+    memory at chunk boundaries and its gradient carried back are walked
+    over chunks of 64 steps, the gradients inside the chunks are masked
+    matrix products, all chunks at once, and the stabiliser's chain is a
+    scan over lane segments; every sum in one fixed order, no atomics
+    (bitwise on repeat).
 
 Every step's arithmetic is the same wherever a call starts and however
 long it is, so a call split in T with the state carried gives the bits
@@ -369,11 +373,10 @@ def _mlstm_bwd_lib() -> ctypes.CDLL:
     lib = build.load("mlstm_scan_bwd")
     fn = lib.apex_mlstm_scan_bwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 13 + [_P] * 6 + [_P] * 8 + [_I] * 4 + [_P]
+        fn.argtypes = [_P] * 13 + [_P] + [_P] * 8 + [_I] * 4 + [_P]
         fn.restype = _I
-        for name in ("apex_mlstm_scan_bwd_chunk", "apex_mlstm_scan_bwd_rows"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = _I
+        lib.apex_mlstm_scan_bwd_scratch_floats.argtypes = [_I] * 4
+        lib.apex_mlstm_scan_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -388,11 +391,10 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``ref.mlstm_recurrence_bwd_ref`` in one call: the forward's inputs,
     its emitted hs, dhs (B,T,H,hd) and the final state's gradients
     (dcmat, dn, dm) or None each -> (dq, dk, dv, di, df, dcmat0, dn0,
-    dm0), fp32.  Scratch: the memory's checkpoints every
-    ``apex_mlstm_scan_bwd_chunk`` steps, one chunk's recomputed memory
-    per CTA, and the per-slab partial sums.  Launches the reverse walk,
-    the partials' reduction and the gates' pass on the current stream,
-    no sync."""
+    dm0), fp32.  Chunkwise-parallel (``ref.mlstm_chunkwise_bwd_ref``'s
+    algebra): one scratch tensor holds the boundary memories and their
+    gradients, the chunks' masked products and the per-step scalars.
+    Launches the source's six kernels on the current stream, no sync."""
     if not q.is_cuda:
         raise ValueError("mlstm_scan_bwd_cuda takes CUDA tensors")
     bsz, t, nh, hd = _check_mlstm(q, k, v, i_pre, f_pre, cmat0, n0, m0)
@@ -404,16 +406,9 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_tensors(dev, [("hs", hs), ("dhs", dhs)]
                    + list(zip(("dcmat", "dn", "dm"), dstate)))
     lib = _mlstm_bwd_lib()
-    chunk = lib.apex_mlstm_scan_bwd_chunk()
-    slabs = hd // lib.apex_mlstm_scan_bwd_rows()
-    nck = -(-t // chunk)
-    f32 = dict(dtype=F32, device=dev)
-    ckpt_c = torch.empty((bsz, nh, nck, hd, hd), **f32)
-    ckpt_nm = torch.empty((bsz, nh, slabs, nck, hd + 4), **f32)
-    stash = torch.empty((bsz, nh, slabs, chunk, hd * hd // slabs), **f32)
-    part_qk = torch.empty((2, slabs, bsz, t, nh, hd), **f32)
-    part_fi = torch.empty((bsz, nh, t, slabs, 2), **f32)
-    scal = torch.empty((bsz, nh, t, 2), **f32)
+    scratch = torch.empty(
+        (lib.apex_mlstm_scan_bwd_scratch_floats(bsz, t, nh, hd),),
+        dtype=F32, device=dev)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     di, df = torch.empty_like(i_pre), torch.empty_like(f_pre)
     grads0 = [torch.empty_like(x) for x in (cmat0, n0, m0)]
@@ -421,10 +416,8 @@ def mlstm_scan_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
         f_pre.data_ptr(), cmat0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
         hs.data_ptr(), dhs.data_ptr(), *[_ptr(g) for g in dstate],
-        ckpt_c.data_ptr(), ckpt_nm.data_ptr(), stash.data_ptr(),
-        part_qk.data_ptr(), part_fi.data_ptr(), scal.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
-        df.data_ptr(), *[g.data_ptr() for g in grads0],
+        scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        di.data_ptr(), df.data_ptr(), *[g.data_ptr() for g in grads0],
         bsz, t, nh, hd, _stream(dev))
     _raise_rc("mlstm_scan_bwd", rc)
     mlstm_scan_bwd_cuda.add_launch()

@@ -596,3 +596,72 @@ def test_mlstm_bwd_kernel_matches_plain(gen, t, hd):
     for g, w, a in zip(got, want, again):
         _close_to_max(g, w, 1e-4)
         assert torch.equal(g, a)
+
+
+def _gates_with_ties(b, t, nh):
+    """i_pre, f_pre, m0 on a grid of 1/64 with i_pre = f_pre + m on every
+    third step: exact in any order of summation, so the kernel's parallel
+    scan of the stabiliser meets the same ties as the plain walk."""
+    g = torch.Generator().manual_seed(t)
+    f_pre = -torch.randint(1, 65, (b, t, nh), generator=g).float() / 64
+    i_pre = torch.randint(-128, 129, (b, t, nh), generator=g).float() / 64
+    m0 = torch.randint(-64, 65, (b, nh), generator=g).float() / 64
+    m = m0.clone()
+    for s in range(t):
+        a = f_pre[:, s] + m
+        if s % 3 == 0:
+            i_pre[:, s] = a
+        m = torch.maximum(a, i_pre[:, s])
+    return i_pre.cuda(), f_pre.cuda(), m0.cuda()
+
+
+@pytest.mark.parametrize("state", ["carried", "zero", "tie"])
+@pytest.mark.parametrize("t,hd", [(63, 64), (64, 64), (65, 64), (200, 64),
+                                  (129, 384)])
+def test_mlstm_bwd_kernel_chunk_edges_states_and_ties(gen, t, hd, state):
+    """The chunkwise backward at T ending inside, on and just past a chunk
+    of 64, from the zero state (m0 = -1e30, no final gradient), a carried
+    one, and with ties in the stabiliser's max: within 1e-4 of each
+    gradient's largest element, bitwise on repeat."""
+    from repro_torch.kernels.xlstm import mlstm_scan_bwd_cuda, mlstm_scan_cuda
+    b, nh = 2, 4
+    args = _mlstm_inputs(gen, b, t, nh, hd)
+    if state == "zero":
+        args[5:] = [torch.zeros_like(args[5]), torch.zeros_like(args[6]),
+                    torch.full_like(args[7], -1e30)]
+    elif state == "tie":
+        args[3], args[4], args[7] = _gates_with_ties(b, t, nh)
+    hs = mlstm_scan_cuda(*args)[0]
+    dhs = _randn(gen, hs.shape, torch.float32)
+    dstate = (None, None, None) if state == "zero" else tuple(
+        _randn(gen, x.shape, torch.float32) for x in args[5:])
+    got = mlstm_scan_bwd_cuda(*args, hs, dhs, dstate)
+    again = mlstm_scan_bwd_cuda(*args, hs, dhs, dstate)
+    want = ref.mlstm_recurrence_bwd_ref(*args, hs, dhs, dstate)
+    for g, w, a in zip(got, want, again):
+        assert bool(torch.isfinite(g).all())
+        _close_to_max(g, w, 1e-4)
+        assert torch.equal(g, a)
+
+
+def test_slstm_kernel_long_frozen_row_and_split_bitwise(gen):
+    """xlstm-125m's sLSTM over T 1024: a row of length 0 keeps its state
+    bit for bit, a row stopped at 600 emits its frozen h over the rest,
+    and a call split at 401 with the state carried is bitwise one call."""
+    from repro_torch.kernels.xlstm import slstm_scan_cuda
+    t, cut = 1024, 401
+    args = _slstm_inputs(gen, 3, t, 4, 192, torch.bfloat16)
+    lens = torch.tensor([t, 600, 0], dtype=torch.int32, device="cuda")
+    got = slstm_scan_cuda(*args, lens)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for g, s0 in zip(got[1:], args[3:]):
+        assert torch.equal(g[2], s0[2])
+    assert torch.equal(got[0][1, 600:],
+                       got[3][1:2].expand(t - 600, -1, -1))
+    first = slstm_scan_cuda(args[0][:, :cut].contiguous(), *args[1:],
+                            torch.clamp(lens, max=cut))
+    second = slstm_scan_cuda(args[0][:, cut:].contiguous(), *args[1:3],
+                             *first[1:], torch.clamp(lens - cut, min=0))
+    assert torch.equal(torch.cat([first[0], second[0]], 1), got[0])
+    for a, b in zip(second[1:], got[1:]):
+        assert torch.equal(a, b)
