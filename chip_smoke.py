@@ -20,11 +20,15 @@ Phases (any failure exits non-zero):
      4 heads of 192, mLSTM 4 of 384): the chat chunk (B 2 x T 64) and
      decode (B 2 x T 1) at 1e-5 of the largest value, frozen rows and a
      split in T bitwise, one launch per call, one long call (T 4096;
-     the sLSTM against a float64 loop), both forward kernels timed at
-     the training shape (B 2 x T 1024) with the time a step, both
+     the sLSTM against a float64 loop; the mLSTM's on its chunkwise
+     route), the mLSTM's chunkwise route at the training shape (B 2 x
+     T 1024) from a carried and from the zero state at 1e-5, bitwise on
+     repeat, each call's route printed, both forward kernels timed at
+     the training shape with the time a step, both
      backward kernels there at 1e-4 (the mLSTM's against its plain
-     version in float64) and bitwise on repeat, the mLSTM backward's six
-     kernels by the profiler beside the call by events;
+     version in float64) and bitwise on repeat, the mLSTM forward's four
+     chunkwise kernels and its backward's six by the profiler beside
+     the call by events;
   3. profile: ``OfflineProfiler`` on llama3.1-8b at published width over
      the startup grid -- every table point finite and positive, both
      attention kernels launched, the profile saved under chiprun_out/ and
@@ -1096,9 +1100,10 @@ def check_bwd_builds(logs: dict) -> None:
         "dq_wgmma_kernel built at D 64 and 128")
 
 
-def graph_launches(fn, calls: int, kernel: str) -> dict:
+def graph_launches(fn, calls: int, kernel) -> dict:
     """What ``calls`` calls of ``fn`` put on the stream, by graph node
-    type, with launches of ``kernel`` apart: the calls are captured in
+    type, with launches of ``kernel`` (a name, or a tuple of names) apart:
+    the calls are captured in
     one CUDA graph and its nodes read back from the graph's debug dump,
     which, unlike a profiler trace, drops no record."""
     import collections
@@ -1123,7 +1128,8 @@ def graph_launches(fn, calls: int, kernel: str) -> dict:
     kinds = collections.Counter()
     for node in nodes:
         kind = re.search(r'label="\{(\w+)', node)
-        kinds["kernel" if kernel in node else
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        kinds["kernel" if any(k in node for k in names) else
               kind.group(1) if kind else "?"] += 1
     return dict(kinds)
 
@@ -1604,18 +1610,25 @@ XLSTM_BWD_TOL = 1e-4    # of each gradient's largest |element|
 # read 0.825x, 0.584x and 1.348x on one H100 80GB HBM3, 700.00 W.
 XLSTM_F64_FACTOR = 2
 XLSTM_F64_DRAWS = 3
+# the mLSTM forward's chunkwise route (no lens, T at or above the
+# crossover) is a sequence of four kernels, its launch count counts calls:
+# the stabiliser's scan, the boundary memories, each chunk's masked
+# products and the output tiles
+MLSTM_FWD_PARTS = ("mlstm_fwd_gates", "mlstm_fwd_bounds", "mlstm_fwd_chunk",
+                   "mlstm_fwd_out")
 XLSTM_KERNELS = {
-    # name: (wrapper, its kernel's name in a graph dump, source, replaces)
-    "slstm_recurrence": ("slstm_scan_cuda", "slstm_scan_kernel",
+    # name: (wrapper, its kernels' names in a graph dump, source, replaces)
+    "slstm_recurrence": ("slstm_scan_cuda", ("slstm_scan_kernel",),
                          "src/repro_torch/csrc/slstm_scan.cu",
                          "src/repro/models/ssm.py:246"),
-    "mlstm_recurrence": ("mlstm_scan_cuda", "mlstm_scan_kernel",
+    "mlstm_recurrence": ("mlstm_scan_cuda",
+                         ("mlstm_scan_kernel",) + MLSTM_FWD_PARTS,
                          "src/repro_torch/csrc/mlstm_scan.cu",
                          "src/repro/models/ssm.py:369"),
-    "slstm_recurrence_bwd": ("slstm_scan_bwd_cuda", "slstm_bwd_kernel",
+    "slstm_recurrence_bwd": ("slstm_scan_bwd_cuda", ("slstm_bwd_kernel",),
                              "src/repro_torch/csrc/slstm_scan_bwd.cu",
                              "src/repro/models/ssm.py:246"),
-    "mlstm_recurrence_bwd": ("mlstm_scan_bwd_cuda", "mlstm_bwd_intra",
+    "mlstm_recurrence_bwd": ("mlstm_scan_bwd_cuda", ("mlstm_bwd_",),
                              "src/repro_torch/csrc/mlstm_scan_bwd.cu",
                              "src/repro/models/ssm.py:369"),
 }
@@ -1747,27 +1760,70 @@ def _slstm_long_f64(gen):
     return k_err, ratio, kp
 
 
+def _mlstm_chunkwise_checks(gen) -> str:
+    """The mLSTM forward's chunkwise route against its plain version: at
+    the train shape (B 2 x T 1024) from a carried state and from the zero
+    state (m0 = -1e30) within XLSTM_TOL of the largest |value|, at the
+    long call (B 1 x T 4096) within XLSTM_LONG_TOL, each bitwise on
+    repeat and its route printed.  Returns the long call's text."""
+    import torch
+    from repro_torch.kernels import ref, xlstm
+    long_text = ""
+    for b, t, state in ((XLSTM["train_rows"], XLSTM["train_seq"], "carried"),
+                        (XLSTM["train_rows"], XLSTM["train_seq"], "zero"),
+                        (1, XLSTM["long"], "carried")):
+        args = _mlstm_case(gen, b, t)
+        if state == "zero":
+            args[5:] = [torch.zeros_like(args[5]), torch.zeros_like(args[6]),
+                        torch.full_like(args[7], -1e30)]
+        route = xlstm.mlstm_scan_route(t, None)
+        got = xlstm.mlstm_scan_cuda(*args)
+        again = xlstm.mlstm_scan_cuda(*args)
+        want = ref.mlstm_recurrence_ref(*args)
+        torch.cuda.synchronize()
+        err = max(_rel_err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
+        bar = XLSTM_LONG_TOL if t == XLSTM["long"] else XLSTM_TOL
+        log(f"  mlstm_recurrence B {b} x T {t}, {state} state: route "
+            f"{route}, |kernel - plain| / max |value| {err:.3e} (bar {bar}), "
+            f"repeat bitwise {same}")
+        if route != "chunkwise" or err > bar or not same:
+            fail(f"mlstm_recurrence B {b} x T {t} ({state} state): route "
+                 f"{route}, err {err:.3e} (bar {bar}), repeat bitwise {same}")
+        if t == XLSTM["long"]:
+            long_text = f"{err:.3e} (bar {bar}; chunkwise route)"
+        del args, got, again, want
+    return long_text
+
+
 def check_xlstm(gen) -> dict:
     """Both forward kernels against their plain versions at the chat
     traffic's prefill chunk (B 2 x T 64, one row ending at 40) and its
-    decode (B 2 x T 1, one row frozen): within XLSTM_TOL of the largest
+    decode (B 2 x T 1, one row frozen), both with lens, so the mLSTM
+    walks: within XLSTM_TOL of the largest
     |value|, the frozen row's state bit for bit, a chunk split in T with
     the state carried bitwise one call, one launch per call (graph
-    dump); then one long call (B 1 x T 4096): the mLSTM within
-    XLSTM_LONG_TOL of its plain version, the sLSTM against a float64 loop
-    (XLSTM_F64_FACTOR).
+    dump); then the mLSTM's chunkwise route (``_mlstm_chunkwise_checks``,
+    its long call B 1 x T 4096 within XLSTM_LONG_TOL) and the sLSTM's
+    long call against a float64 loop (XLSTM_F64_FACTOR).
     Returns the worst (ratio, absolute error) at the serving shapes per
     kernel."""
     import torch
+    from repro_torch.kernels import xlstm
     errs = {}
     rows, chunk, cut = XLSTM["rows"], XLSTM["chunk"], XLSTM["cut"]
     for kind in ("slstm", "mlstm"):
         case, kernel, plain, nseq = _xlstm_fns(kind)
         name = f"{kind}_recurrence"
         worst = worst_abs = 0.0
+        routes = []
         for t, lens_v in ((chunk, [chunk, 40]), (1, [1, 0])):
             args = case(gen, rows, t)
             lens = torch.tensor(lens_v, dtype=torch.int32, device="cuda")
+            if kind == "mlstm":
+                routes.append(xlstm.mlstm_scan_route(t, lens))
+                if routes[-1] != "walk":
+                    fail(f"{name}: a call with lens took {routes[-1]}")
             got = kernel(*args, lens)
             want = plain(*args, lens)
             torch.cuda.synchronize()
@@ -1802,15 +1858,7 @@ def check_xlstm(gen) -> dict:
                     fail(f"{name}: 10 decode calls put {kinds} on the "
                          "stream; want one launch each")
         if kind == "mlstm":
-            args = case(gen, 1, XLSTM["long"])
-            got = kernel(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            long_err = max(_rel_err(g, w) for g, w in zip(got, want))
-            long_text = f"{long_err:.3e} (bar {XLSTM_LONG_TOL})"
-            if long_err > XLSTM_LONG_TOL:
-                fail(f"{name} at T {XLSTM['long']}: {long_err:.3e}")
-            del args, got, want
+            long_text = _mlstm_chunkwise_checks(gen)
         else:
             k_err, ratio, kp = _slstm_long_f64(gen)
             long_text = (f"against float64: kernel up to {k_err:.3e}, up to "
@@ -1820,7 +1868,8 @@ def check_xlstm(gen) -> dict:
             if ratio > XLSTM_F64_FACTOR:
                 fail(f"{name} at T {XLSTM['long']}: {long_text}")
         log(f"  {name}: |kernel - plain| / max |value| {worst:.3e} at the "
-            f"chunk and decode shapes (bar {XLSTM_TOL}); at B 1 x T "
+            f"chunk and decode shapes (bar {XLSTM_TOL}"
+            + (f"; routes {routes}" if routes else "") + f"); at B 1 x T "
             f"{XLSTM['long']} {long_text}; frozen row bitwise, split at "
             f"{cut} bitwise, one launch per call")
         errs[name] = (worst, worst_abs)
@@ -1879,8 +1928,10 @@ def _xlstm_record(name, errs, ms, plain_ms, b, t, shape) -> dict:
 
 def bench_xlstm(gen, errs) -> dict:
     """Device time of each forward kernel and its plain version at the
-    chat chunk (the records), at decode, at the long call and at the
-    train shape (events, printed, with the time a step); each backward
+    chat chunk with lens, as served (the records; the mLSTM's walk), at
+    decode, at the long call and at the train shape (events, printed,
+    with the time a step and the mLSTM's route; its chunkwise route's
+    four kernels also by the profiler); each backward
     kernel against its plain version (the mLSTM's in float64) at the
     train shape
     (XLSTM_BWD_TOL of each gradient's max, bitwise on repeat) and timed
@@ -1895,40 +1946,64 @@ def bench_xlstm(gen, errs) -> dict:
         case, kernel, plain, _ = _xlstm_fns(kind)
         name = f"{kind}_recurrence"
         args = case(gen, rows, chunk)
-        kms = device_ms(lambda: kernel(*args)) or time_ms(lambda: kernel(
-            *args))
-        pms = device_ms(lambda: plain(*args), reps=3) or time_ms(
-            lambda: plain(*args), warmup=1, reps=3, rounds=1)
+        full = torch.full((rows,), chunk, dtype=torch.int32, device="cuda")
+        kms = device_ms(lambda: kernel(*args, full)) or time_ms(
+            lambda: kernel(*args, full))
+        pms = device_ms(lambda: plain(*args, full), reps=3) or time_ms(
+            lambda: plain(*args, full), warmup=1, reps=3, rounds=1)
         rec = _xlstm_record(name, errs[name], kms, pms, rows, chunk,
                             f"chat chunk B{rows} T{chunk} H4 "
                             f"hd{XLSTM[kind + '_hd']}")
         dec = case(gen, rows, 1)
         dms = time_ms(lambda: kernel(*dec))
         dpl = time_ms(lambda: plain(*dec), reps=5, rounds=3)
+        dprof = device_ms(lambda: kernel(*dec))
         ld = case(gen, 1, XLSTM["long"])
         lms = time_ms(lambda: kernel(*ld), warmup=1, reps=3, rounds=3)
         dbd = xlstm_bound(name, rows, 1)
         lbd = xlstm_bound(name, 1, XLSTM["long"])
-        log(f"  {name} decode B{rows} T1 (events): kernel {dms:.5f} ms, "
+        route = (lambda t: xlstm.mlstm_scan_route(t, None)) \
+            if kind == "mlstm" else (lambda t: "one kernel")
+        log(f"  {name} decode B{rows} T1 (events): kernel {dms:.5f} ms "
+            f"(profiler {dprof or 0.0:.5f}), "
             f"plain {dpl:.5f} ms, bound {dbd['bound_ms']:.5f} ms "
-            f"({dbd['bound_by']}); long B1 T{XLSTM['long']} (events): "
+            f"({dbd['bound_by']}); long B1 T{XLSTM['long']} (events, "
+            f"{route(XLSTM['long'])}): "
             f"kernel {lms:.5f} ms, bound {lbd['bound_ms']:.5f} ms "
             f"({lbd['bound_by']}) [{CARD}]")
-        rec["decode"] = {"ms": dms, "plain_ms": dpl,
+        rec["decode"] = {"ms": dms, "profiler_ms": dprof, "plain_ms": dpl,
                          "bound_ms": dbd["bound_ms"]}
-        rec["long"] = {"ms": lms, "bound_ms": lbd["bound_ms"]}
+        rec["long"] = {"ms": lms, "bound_ms": lbd["bound_ms"],
+                       "route": route(XLSTM["long"])}
         # the train phase's shape: the sLSTM saving what its backward reads
         tb, tt = XLSTM["train_rows"], XLSTM["train_seq"]
         tr = case(gen, tb, tt)
         kw = {"save": True} if kind == "slstm" else {}
         tms = time_ms(lambda: kernel(*tr, **kw), warmup=1, reps=3, rounds=3)
         tbd = xlstm_bound(name, tb, tt)
-        log(f"  {name} train B{tb} T{tt} (events): kernel {tms:.5f} ms, "
+        log(f"  {name} train B{tb} T{tt} (events, {route(tt)}): kernel "
+            f"{tms:.5f} ms, "
             f"bound {tbd['bound_ms']:.5f} ms ({tbd['bound_by']}); a step "
             f"{1e3 * kms / chunk:.3f} us at T {chunk}, "
             f"{1e3 * tms / tt:.3f} us at T {tt} [{CARD}]")
         rec["train"] = {"ms": tms, "bound_ms": tbd["bound_ms"],
-                        "bound_by": tbd["bound_by"]}
+                        "bound_by": tbd["bound_by"], "route": route(tt)}
+        if kind == "mlstm":
+            # the chunkwise call is four kernels; its count counts calls
+            by_kernel = device_ms_by_kernel(lambda: kernel(*tr, **kw),
+                                            reps=3)
+            parts = {short: ms for short in MLSTM_FWD_PARTS
+                     for key, ms in by_kernel.items()
+                     if f"::{short}(" in key}
+            every = sum(by_kernel.values())
+            log(f"  {name} train: device ms per call by kernel (profiler) "
+                + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
+                + f"; every kernel {every:.5f}, the call by events "
+                f"{tms:.5f} [{CARD}]")
+            if set(parts) != set(MLSTM_FWD_PARTS):
+                fail(f"{name}: the profiler saw {sorted(parts)} at the train "
+                     f"shape, want {list(MLSTM_FWD_PARTS)}")
+            rec["train"].update(profiler_ms=every, parts_ms=parts)
         records[name] = rec
         del args, dec, ld, tr
     b, t = XLSTM["train_rows"], XLSTM["train_seq"]
@@ -4494,6 +4569,11 @@ TRAIN = dict(rows=2, seq=1024, steps=5, lr=1e-4, loss_chunk=256)
 TRAIN_HYBRID = dict(rows=1, seq=1024, steps=3)
 # xlstm-125m at published width and depth (12 layers, bf16)
 TRAIN_XLSTM = dict(rows=2, seq=1024, steps=3)
+# a profiled xlstm-125m step's time in the two recurrences before their
+# redesigns (the mLSTM forward's chunkwise route, the sLSTM backward's
+# mbarrier exchange; ms, H100 80GB HBM3, 700.00 W; PERF.md §5), printed
+# beside
+XLSTM_STEP_BEFORE = {"mLSTM forward": 15.6, "sLSTM backward": 13.1}
 # one loss.backward() in fp32 on the card (kernels) against the CPU (plain
 # versions): both models at published width cut to 2 layers, B 1 x T 128;
 # each leaf's gradient within GRAD_TOL of its largest |element| (fp32
@@ -4627,15 +4707,20 @@ def _step_split(cfg, state, batch) -> dict:
     for key, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.3f} ms  {key[:100]}")
     # the recurrences' kernels, each summed over the step
-    groups = {"sLSTM forward": "::slstm_scan_kernel<",
-              "sLSTM backward": "::slstm_bwd_kernel<",
-              "mLSTM forward": "::mlstm_scan_kernel<",
-              "mLSTM backward": "::mlstm_bwd_"}
-    split = {g: sum(ms for key, ms in per.items() if pat in key)
-             for g, pat in groups.items()}
+    # (the mLSTM forward by both routes: the walk and the chunkwise parts)
+    groups = {"sLSTM forward": ("::slstm_scan_kernel<",),
+              "sLSTM backward": ("::slstm_bwd_kernel<",),
+              "mLSTM forward": ("::mlstm_scan_kernel<", "::mlstm_fwd_"),
+              "mLSTM backward": ("::mlstm_bwd_",)}
+    split = {g: sum(ms for key, ms in per.items()
+                    if any(pat in key for pat in pats))
+             for g, pats in groups.items()}
     if any(split.values()):
         log("  the recurrences in the profiled step: " + ", ".join(
-            f"{g} {ms:.3f} ms" for g, ms in split.items()))
+            f"{g} {ms:.3f} ms" + (f" (before its redesign: "
+                                  f"{XLSTM_STEP_BEFORE[g]} ms)"
+                                  if g in XLSTM_STEP_BEFORE else "")
+            for g, ms in split.items()))
     return dict(parts, profiled_ms=wall * 1e3, busy=busy,
                 recurrences_ms=split)
 

@@ -23,18 +23,33 @@
 //
 // What bounds it on an H100: as the forward, the latency of a step (the
 // 147k-FMA product R . dpre at xlstm-125m and one exchange), not bytes.
-// The design mirrors the forward kernel's cluster of 4 CTAs per (row,
-// head), CTA q owning units [q hd/4, (q+1) hd/4):
-//   * a thread owns one input d of the head and half of the CTA's 4 hd/4
-//     gate columns of R (hd/2 fp32 registers), so it sums its half of
-//     R[d, :] . dpre over the CTA's columns; a lane pair adds the halves;
-//   * the partial sums for d go to the CTA that owns unit d, through
-//     distributed shared memory (double-buffered slots, one per source
-//     CTA), and after one cluster barrier the owner adds its four slots
-//     in rank order: dh_{t-1} in one fixed order, no atomics, so a repeat
-//     gives the same bits;
-//   * one thread per unit runs the elementwise step above, with the next
-//     step's saved values loaded ahead of use (one step of prefetch).
+// The design carries over the forward kernel's exchange (slstm_scan.cu):
+//   * a cluster of APEX_SLSTM_BWD_CLUSTER CTAs (8, or 4 at head_dim 16) per
+//     (row, head), CTA q owning units [q U, (q+1) U), U = hd / cluster;
+//     one thread per unit runs the elementwise step above;
+//   * the recurrent product, reduce-scattered (APEX_SLSTM_BWD_BROADCAST
+//     0): a thread owns one input d of the head and half of the CTA's 4 U
+//     gate columns of R (2 U fp32 registers, staged once through shared
+//     memory), sums its half of R[d, :] . dpre over them, a lane pair adds
+//     the halves, and the sum goes into unit d's owner CTA's next buffer
+//     by st.async (complete_tx), its slot the sender's rank; the owner
+//     adds its cluster's slots in rank order, so a repeat gives the same
+//     bits.  Each CTA's two buffers have one mbarrier each, armed for
+//     hd x 4 bytes a phase.  (APEX_SLSTM_BWD_BROADCAST 1: each owner
+//     sends its unit's 4 dpre values to every CTA instead, and each CTA
+//     sums R[u, :] . dpre over all 4 hd columns for its own units: no
+//     cross-CTA sum, 4x the bytes, 4 hd x 4 a phase);
+//   * no cluster barrier in the step loop (APEX_SLSTM_BWD_EXCHANGE 0: a
+//     distributed shared memory store and one cluster barrier a step, the
+//     first design's way), one at the end.  Two buffers suffice, as in
+//     the forward: a CTA sends step t-1's values into a buffer only after
+//     it has received every CTA's step-t values, each of which was sent
+//     after that CTA's owners had read the same buffer at step t+1's
+//     values;
+//   * the saved per-step values (acts, cs, ns, ms, dhs) of the CTA's
+//     units arrive by 16-byte cp.async in tiles of kTileT steps (with the
+//     step before the tile's first, whose state is the first step's
+//     previous one), double-buffered, a tile ahead of use.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's
 // stream, never synchronises, allocates nothing, and returns
@@ -47,28 +62,115 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#ifndef APEX_LAUNCH
-#define APEX_LAUNCH(kernel, grid, block, smem, stream, ...) \
-  kernel<<<grid, block, smem, stream>>>(__VA_ARGS__)
+#ifndef APEX_SLSTM_BWD_CLUSTER
+#define APEX_SLSTM_BWD_CLUSTER 8
+#endif
+#ifndef APEX_SLSTM_BWD_EXCHANGE
+#define APEX_SLSTM_BWD_EXCHANGE 1
+#endif
+#ifndef APEX_SLSTM_BWD_BROADCAST
+#define APEX_SLSTM_BWD_BROADCAST 0
 #endif
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 4;   // CTAs per (row, head)
+constexpr int kTileT = 8;     // steps of saved values per staged tile
+constexpr bool kMbar = APEX_SLSTM_BWD_EXCHANGE != 0;
+constexpr bool kBcast = APEX_SLSTM_BWD_BROADCAST != 0;
 
-template <int HD>
+template <int HD, typename TR>
 struct Geo {
-  static constexpr int U = HD / kCluster;   // units per CTA
-  static constexpr int kThreads = 2 * HD;   // one input x 2 halves
-  static constexpr int kHalf = 2 * U;       // gate columns per thread
-  static_assert(kHalf % 4 == 0, "four FMA chains");
+  // the asked cluster where its CTAs keep 16-byte staging, else 4
+  static constexpr int kCl =
+      (HD / APEX_SLSTM_BWD_CLUSTER) % 4 == 0 ? APEX_SLSTM_BWD_CLUSTER : 4;
+  static constexpr int U = HD / kCl;        // units per CTA
+  static constexpr int kThreads = 2 * HD;   // (input, half) or (unit, part)
+  static constexpr int kCols = 2 * U;       // R values a thread holds
+  static constexpr int kLanes = 2 * kCl;    // threads a unit (broadcast)
+  // a staged step: acts (4 U: i, f, z, o), c, n, m and dh of the units
+  static constexpr int kRow = 8 * U;
+  // R's staged copy (reduce-scatter): HD rows of the CTA's 4 U columns
+  static constexpr int kSegB = U * (int)sizeof(TR);
+  static constexpr int kPiece = kSegB % 16 == 0 ? 16 : (kSegB % 8 == 0 ? 8 : 4);
+  static constexpr size_t kRBytes =
+      kBcast ? 0 : (size_t)HD * 4 * U * sizeof(TR);
+  // floats of one exchange buffer
+  static constexpr int kRecv = kBcast ? 4 * HD : kCl * U;
+  static_assert(U % 4 == 0 && kCols % 4 == 0, "16-byte staging");
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_n(void* smem, const void* gmem) {
+  if constexpr (N == 16)
+    cp_async16(smem, gmem);
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(smem)), "l"(gmem), "n"(N));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// mbarriers in shared memory (a CTA's own, or a peer's by its cluster
+// address), as slstm_scan.cu uses them
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arm(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr,
+                                                 unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// store x at a peer's address and complete 4 bytes of its mbarrier
+__device__ __forceinline__ void st_async(unsigned addr, float x,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(x), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ float sigmoid_rn(float x) {
@@ -84,15 +186,70 @@ __device__ __forceinline__ float sign_of(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
 }
 
-// what one step of a unit reads: its saved pre-activations, its state
-// after the step and before it, and the emitted h's gradient
-struct StepIn {
-  float gi, gf, gz, go, c_new, n_new, c_prev, n_prev, m_prev, dy;
-};
+// One reverse step of a unit: its staged step (row) and the step before
+// (prev: c, n, m), the carried gradients in and out, dpre (i, f, z, o).
+template <int U>
+__device__ __forceinline__ void bwd_cell(const float* row, const float* prev,
+                                         int u, float dh, float& dc,
+                                         float& dn, float& dm, float* dg) {
+  const float gi = row[u], gf = row[U + u], gz = row[2 * U + u],
+              go = row[3 * U + u];
+  const float c_new = row[4 * U + u], n_new = row[5 * U + u],
+              dy = row[7 * U + u];
+  const float c_prev = prev[4 * U + u], n_prev = prev[5 * U + u],
+              m_prev = prev[6 * U + u];
+  const float a = __fadd_rn(gf, m_prev);
+  const float m_new = fmaxf(a, gi);
+  const float i_g = expf(__fsub_rn(gi, m_new));
+  const float f_g = expf(__fsub_rn(a, m_new));
+  const float tz = tanhf(gz), so = sigmoid_rn(go);
+  const float den = fmaxf(fabsf(n_new), 1e-6f);
+  const float dh_new = __fadd_rn(dh, dy);
+  const float dgo = __fmul_rn(
+      __fmul_rn(__fdiv_rn(__fmul_rn(dh_new, c_new), den), so),
+      __fsub_rn(1.f, so));
+  const float dc_new = __fadd_rn(dc, __fdiv_rn(__fmul_rn(dh_new, so), den));
+  const float w_abs = max_share(fabsf(n_new), 1e-6f);
+  const float dn_new = __fsub_rn(
+      dn, __fmul_rn(__fmul_rn(__fdiv_rn(__fmul_rn(__fmul_rn(dh_new, so),
+                                                  c_new),
+                                        __fmul_rn(den, den)),
+                              sign_of(n_new)),
+                    w_abs));
+  const float df_g = __fadd_rn(__fmul_rn(dc_new, c_prev),
+                               __fmul_rn(dn_new, n_prev));
+  const float di_g = __fadd_rn(__fmul_rn(dc_new, tz), dn_new);
+  const float dgz = __fmul_rn(__fmul_rn(dc_new, i_g),
+                              __fsub_rn(1.f, __fmul_rn(tz, tz)));
+  const float dm_tot = __fsub_rn(__fsub_rn(dm, __fmul_rn(di_g, i_g)),
+                                 __fmul_rn(df_g, f_g));
+  const float w_a = max_share(a, gi), w_i = max_share(gi, a);
+  dg[0] = __fadd_rn(__fmul_rn(di_g, i_g), __fmul_rn(dm_tot, w_i));
+  dg[1] = __fadd_rn(__fmul_rn(df_g, f_g), __fmul_rn(dm_tot, w_a));
+  dg[2] = dgz;
+  dg[3] = dgo;
+  dm = dg[1];
+  dc = __fmul_rn(dc_new, f_g);
+  dn = __fmul_rn(dn_new, f_g);
+}
+
+// x . w over N values in four FMA chains, then the chains in a fixed order
+template <int N>
+__device__ __forceinline__ float dot4(const float* x, const float* w) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(x + i);
+    a0 = __fmaf_rn(v.x, w[i], a0);
+    a1 = __fmaf_rn(v.y, w[i + 1], a1);
+    a2 = __fmaf_rn(v.z, w[i + 2], a2);
+    a3 = __fmaf_rn(v.w, w[i + 3], a3);
+  }
+  return __fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3));
+}
 
 template <int HD, typename TR>
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(Geo<HD>::kThreads, 1)
+__global__ void __launch_bounds__(Geo<HD, TR>::kThreads, 1)
     slstm_bwd_kernel(const TR* __restrict__ r,
                      const float* __restrict__ acts,
                      const float* __restrict__ cs,
@@ -109,143 +266,207 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                      float* __restrict__ dacts, float* __restrict__ dc0,
                      float* __restrict__ dn0, float* __restrict__ dh0,
                      float* __restrict__ dm0, int T, int H) {
-  using G = Geo<HD>;
+  using G = Geo<HD, TR>;
+  constexpr int CL = G::kCl, U = G::U;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int head = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int d = tid >> 1, half = tid & 1;
-  __shared__ __align__(16) float dg_s[4 * G::U];
-  __shared__ float recv[2][kCluster][G::U];
+  __shared__ __align__(16) float st_s[2][kTileT + 1][G::kRow];
+  __shared__ __align__(16) float dg_s[2][4 * U];
+  __shared__ __align__(16) float recv[2][G::kRecv];
+  __shared__ float dh_s[U];
+  __shared__ __align__(8) unsigned long long bar[2];
+  extern __shared__ __align__(16) unsigned char r_s[];
 
-  // R[head, d, c] for this thread's half of the CTA's gate columns
-  // (local column j = gate * U + unit within the CTA)
-  float rw[G::kHalf];
-  const TR* rp = r + ((size_t)head * HD + d) * (4 * HD);
+  // this thread's R values in fp32: reduce-scatter, input d and half of
+  // the CTA's local columns j = gate U + unit (staged through shared
+  // memory); broadcast, unit u's row over columns [part 2U, +2U) of 4 hd
+  const int d = tid >> 1, half = tid & 1;
+  const int bu = tid / G::kLanes, part = tid % G::kLanes;
+  float rw[G::kCols];
+  const TR* rh = r + (size_t)head * HD * (4 * HD);
+  if constexpr (kBcast) {
+    const TR* rp = rh + (size_t)(rank * U + bu) * 4 * HD + part * G::kCols;
 #pragma unroll
-  for (int i = 0; i < G::kHalf; ++i) {
-    const int j = half * G::kHalf + i;
-    rw[i] = to_f(rp[(j / G::U) * HD + rank * G::U + j % G::U]);
+    for (int i = 0; i < G::kCols; ++i) rw[i] = to_f(rp[i]);
+  } else {
+    constexpr int kPer = G::kSegB / G::kPiece;   // pieces a segment
+    TR* rs = reinterpret_cast<TR*>(r_s);
+    for (int j = tid; j < HD * 4 * kPer; j += G::kThreads) {
+      const int row = j / (4 * kPer), rem = j % (4 * kPer);
+      const int gg = rem / kPer, pc = rem % kPer;
+      cp_async_n<G::kPiece>(
+          reinterpret_cast<unsigned char*>(rs + row * 4 * U + gg * U)
+              + pc * G::kPiece,
+          reinterpret_cast<const unsigned char*>(
+              rh + (size_t)row * 4 * HD + gg * HD + rank * U)
+              + pc * G::kPiece);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < G::kCols; ++i)
+      rw[i] = to_f(rs[d * 4 * U + half * G::kCols + i]);
   }
 
-  const bool owner = tid < G::U;               // one thread per unit
-  const int unit = rank * G::U + tid;          // (owners only)
+  const bool owner = tid < U;                  // one thread per unit
+  const int unit = rank * U + tid;             // (owners only)
   const size_t sbase = ((size_t)b * H + head) * HD;
   float dc = 0.f, dn = 0.f, dm = 0.f, dh = 0.f;
-  auto load_step = [&](int t) {
-    StepIn s;
-    const size_t bt = ((size_t)b * T + t) * H + head;
-    const float* a = acts + bt * 4 * HD + unit;
-    s.gi = a[0];
-    s.gf = a[HD];
-    s.gz = a[2 * HD];
-    s.go = a[3 * HD];
-    s.c_new = cs[bt * HD + unit];
-    s.n_new = ns[bt * HD + unit];
-    s.dy = dhs[bt * HD + unit];
-    if (t > 0) {
-      const size_t pv = (bt - H) * HD + unit;
-      s.c_prev = cs[pv];
-      s.n_prev = ns[pv];
-      s.m_prev = ms[pv];
-    } else {
-      s.c_prev = c0[sbase + unit];
-      s.n_prev = n0[sbase + unit];
-      s.m_prev = m0[sbase + unit];
-    }
-    return s;
-  };
-  StepIn cur{};
   if (owner) {
     if (dc_t != nullptr) dc = dc_t[sbase + unit];
     if (dn_t != nullptr) dn = dn_t[sbase + unit];
     if (dm_t != nullptr) dm = dm_t[sbase + unit];
     if (dh_t != nullptr) dh = dh_t[sbase + unit];
-    cur = load_step(T - 1);
   }
-  cluster.sync();   // every CTA runs before any writes into its memory
+  const unsigned bar0 = smem_addr(&bar[0]);
+  constexpr unsigned kPhase = G::kRecv * 4;    // bytes a CTA receives a step
+  if (kMbar && tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arm(bar0, kPhase);       // each buffer's first phase
+    mbar_arm(bar0 + 8, kPhase);
+  }
+  // where this thread's sends land: reduce-scatter, slot rank of input
+  // d's owner (senders are the half-0 threads); broadcast, unit's gate
+  // columns in every CTA (senders are the owners)
+  const int dest = d / U;
+  const unsigned slot0 = smem_addr(kBcast ? &recv[0][tid < U ? unit : 0]
+                                          : &recv[0][rank * U + d % U]);
+  unsigned peer_slot[kBcast ? CL : 1], peer_bar[kBcast ? CL : 1];
+  if (kMbar) {
+#pragma unroll
+    for (int q = 0; q < (kBcast ? CL : 1); ++q) {
+      const int to = kBcast ? q : dest;
+      peer_slot[q] = cluster_addr(slot0, to);
+      peer_bar[q] = cluster_addr(bar0, to);
+    }
+  }
+
+  // tile k holds steps [t0, t1) (counted from the end) in rows 1.., and
+  // the state before t0 (c, n, m) in row 0
+  const size_t bt0 = (size_t)b * T;
+  auto stage = [&](int k, int buf) {
+    const int t1 = T - k * kTileT, t0 = max(0, t1 - kTileT);
+    constexpr int kQ = U / 4;                  // 16-byte pieces a field
+    for (int j = tid; j < (t1 - t0) * 8 * kQ; j += G::kThreads) {
+      const int s = j / (8 * kQ), f = (j / kQ) % 8, q4 = j % kQ;
+      const size_t bt = (bt0 + t0 + s) * H + head;
+      const float* src =
+          f < 4 ? acts + bt * 4 * HD + f * HD
+                : (f == 4 ? cs : f == 5 ? ns : f == 6 ? ms : dhs) + bt * HD;
+      cp_async16(&st_s[buf][s + 1][f * U + 4 * q4], src + rank * U + 4 * q4);
+    }
+    for (int j = tid; j < 3 * kQ; j += G::kThreads) {
+      const int f = 4 + j / kQ, q4 = j % kQ;
+      const float* src =
+          t0 > 0 ? (f == 4 ? cs : f == 5 ? ns : ms)
+                       + ((bt0 + t0 - 1) * H + head) * HD
+                 : (f == 4 ? c0 : f == 5 ? n0 : m0) + sbase;
+      cp_async16(&st_s[buf][0][f * U + 4 * q4], src + rank * U + 4 * q4);
+    }
+    cp_async_commit();
+  };
+
+  // the step-s exchange's values, summed for this CTA's units into dh
+  // (owners; broadcast: every thread takes part in the product)
+  unsigned parity[2] = {0u, 0u};
   const unsigned full = 0xffffffffu;
-  int nb = 0;
-  for (int t = T - 1; t >= 0; --t) {
-    if (owner) {
-      const StepIn s = cur;
-      if (t > 0) cur = load_step(t - 1);       // ahead of use
-      const float a = __fadd_rn(s.gf, s.m_prev);
-      const float m_new = fmaxf(a, s.gi);
-      const float i_g = expf(__fsub_rn(s.gi, m_new));
-      const float f_g = expf(__fsub_rn(a, m_new));
-      const float tz = tanhf(s.gz), so = sigmoid_rn(s.go);
-      const float den = fmaxf(fabsf(s.n_new), 1e-6f);
-      const float dh_new = __fadd_rn(dh, s.dy);
-      const float dgo = __fmul_rn(
-          __fmul_rn(__fdiv_rn(__fmul_rn(dh_new, s.c_new), den), so),
-          __fsub_rn(1.f, so));
-      const float dc_new = __fadd_rn(dc, __fdiv_rn(__fmul_rn(dh_new, so),
-                                                   den));
-      const float w_abs = max_share(fabsf(s.n_new), 1e-6f);
-      const float dn_new = __fsub_rn(
-          dn, __fmul_rn(__fmul_rn(__fdiv_rn(__fmul_rn(__fmul_rn(dh_new, so),
-                                                      s.c_new),
-                                            __fmul_rn(den, den)),
-                                  sign_of(s.n_new)),
-                        w_abs));
-      const float df_g = __fadd_rn(__fmul_rn(dc_new, s.c_prev),
-                                   __fmul_rn(dn_new, s.n_prev));
-      const float di_g = __fadd_rn(__fmul_rn(dc_new, tz), dn_new);
-      const float dgz = __fmul_rn(__fmul_rn(dc_new, i_g),
-                                  __fsub_rn(1.f, __fmul_rn(tz, tz)));
-      const float dm_tot = __fsub_rn(__fsub_rn(dm, __fmul_rn(di_g, i_g)),
-                                     __fmul_rn(df_g, f_g));
-      const float w_a = max_share(a, s.gi), w_i = max_share(s.gi, a);
-      const float dgi = __fadd_rn(__fmul_rn(di_g, i_g),
-                                  __fmul_rn(dm_tot, w_i));
-      const float dgf = __fadd_rn(__fmul_rn(df_g, f_g),
-                                  __fmul_rn(dm_tot, w_a));
-      dm = dgf;
-      dc = __fmul_rn(dc_new, f_g);
-      dn = __fmul_rn(dn_new, f_g);
-      dg_s[tid] = dgi;
-      dg_s[G::U + tid] = dgf;
-      dg_s[2 * G::U + tid] = dgz;
-      dg_s[3 * G::U + tid] = dgo;
-      float* out = dacts + (((size_t)b * T + t) * H + head) * 4 * HD + unit;
-      out[0] = dgi;
-      out[HD] = dgf;
-      out[2 * HD] = dgz;
-      out[3 * HD] = dgo;
+  auto receive = [&](int buf) {
+    if (kMbar && (kBcast || owner)) {
+      mbar_wait(bar0 + 8 * buf, parity[buf]);
+      parity[buf] ^= 1u;
+      if (tid == 0) mbar_arm(bar0 + 8 * buf, kPhase);   // its next phase
+    }
+    if constexpr (kBcast) {
+      float x = dot4<G::kCols>(&recv[buf][part * G::kCols], rw);
+#pragma unroll
+      for (int off = CL; off > 0; off >>= 1)
+        x = __fadd_rn(x, __shfl_xor_sync(full, x, off));
+      if (part == 0) dh_s[bu] = x;
+      __syncthreads();
+      if (owner) dh = dh_s[tid];
+    } else if (owner) {
+      float x = recv[buf][tid];
+#pragma unroll
+      for (int q = 1; q < CL; ++q) x = __fadd_rn(x, recv[buf][q * U + tid]);
+      dh = x;
+    }
+  };
+
+  const int ntiles = (T + kTileT - 1) / kTileT;
+  stage(0, 0);
+  cluster.sync();   // every CTA runs (and its barriers are set up)
+  int s = 0;        // steps taken, from the end
+  for (int k = 0; k < ntiles; ++k) {
+    __syncthreads();   // tile k-1's rows are read: its buffer is refilled
+    if (k + 1 < ntiles) {
+      stage(k + 1, (k + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    // R[d, CTA's columns] . dpre, this thread's half, then the pair's sum
-    const float* gp = &dg_s[half * G::kHalf];
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    const int t1 = T - k * kTileT, t0 = max(0, t1 - kTileT);
+    for (int t = t1 - 1; t >= t0; --t, ++s) {
+      const int cur = s & 1;
+      if (s > 0) receive(cur ^ 1);
+      float dg[4];
+      if (owner) {
+        bwd_cell<U>(st_s[k & 1][t - t0 + 1], st_s[k & 1][t - t0], tid, dh,
+                    dc, dn, dm, dg);
+        float* out = dacts + ((bt0 + t) * H + head) * 4 * HD + unit;
 #pragma unroll
-    for (int i = 0; i < G::kHalf; i += 4) {
-      const float4 gv = *reinterpret_cast<const float4*>(gp + i);
-      a0 = __fmaf_rn(gv.x, rw[i], a0);
-      a1 = __fmaf_rn(gv.y, rw[i + 1], a1);
-      a2 = __fmaf_rn(gv.z, rw[i + 2], a2);
-      a3 = __fmaf_rn(gv.w, rw[i + 3], a3);
+        for (int g = 0; g < 4; ++g) out[g * HD] = dg[g];
+      }
+      if constexpr (kBcast) {
+        if (owner) {
+#pragma unroll
+          for (int q = 0; q < CL; ++q)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              if (kMbar)
+                st_async(peer_slot[q] + 4 * (cur * G::kRecv + g * HD), dg[g],
+                         peer_bar[q] + 8 * cur);
+              else
+                *cluster.map_shared_rank(&recv[cur][g * HD + unit], q) =
+                    dg[g];
+            }
+        }
+      } else {
+        if (owner) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) dg_s[cur][g * U + tid] = dg[g];
+        }
+        __syncthreads();
+        // R[d, the CTA's columns] . dpre, this thread's half, then the
+        // pair's sum, sent to the owner of d
+        const float part_sum = dot4<G::kCols>(&dg_s[cur][half * G::kCols], rw);
+        const float other = __shfl_xor_sync(full, part_sum, 1);
+        if (half == 0) {
+          const float sum = __fadd_rn(part_sum, other);
+          if (kMbar)
+            st_async(peer_slot[0] + 4 * cur * G::kRecv, sum,
+                     peer_bar[0] + 8 * cur);
+          else
+            *cluster.map_shared_rank(&recv[cur][rank * U + d % U], dest) =
+                sum;
+        }
+      }
+      if (!kMbar) cluster.sync();
     }
-    const float part = __fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3));
-    const float other = __shfl_xor_sync(full, part, 1);
-    if (half == 0) {
-      const float sum = __fadd_rn(part, other);
-      *cluster.map_shared_rank(&recv[nb][rank][d % G::U], d / G::U) = sum;
-    }
-    cluster.sync();
-    if (owner) {
-      dh = __fadd_rn(__fadd_rn(__fadd_rn(recv[nb][0][tid], recv[nb][1][tid]),
-                               recv[nb][2][tid]),
-                     recv[nb][3][tid]);
-    }
-    nb ^= 1;
   }
+  receive((s - 1) & 1);   // the last step's product: dh_0's gradient
   if (owner) {
     dc0[sbase + unit] = dc;
     dn0[sbase + unit] = dn;
     dh0[sbase + unit] = dh;
     dm0[sbase + unit] = dm;
   }
+  cluster.sync();   // no CTA leaves while a peer may store to it
 }
 
 template <int HD, typename TR>
@@ -256,13 +477,31 @@ int launch(const void* r, const float* acts, const float* cs,
            const float* dm_t, float* dacts, float* dc0, float* dn0,
            float* dh0, float* dm0, int B, int T, int H,
            cudaStream_t stream) {
+  using G = Geo<HD, TR>;
   auto kern = slstm_bwd_kernel<HD, TR>;
-  APEX_LAUNCH(kern, dim3(kCluster, H, B), dim3(Geo<HD>::kThreads), 0,
-              stream, (const TR*)r, acts, cs, ns, ms, c0, n0, m0, dhs, dc_t,
-              dn_t, dh_t, dm_t, dacts, dc0, dn0, dh0, dm0, T, H);
-  return 0;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kRBytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G::kCl, H, B);
+  cfg.blockDim = dim3(G::kThreads);
+  cfg.dynamicSmemBytes = G::kRBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G::kCl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, (const TR*)r, acts, cs, ns, ms,
+                                 c0, n0, m0, dhs, dc_t, dn_t, dh_t, dm_t,
+                                 dacts, dc0, dn0, dh0, dm0, T, H);
 }
-
 template <typename TR>
 int dispatch(int HD, const void* r, const float* acts, const float* cs,
              const float* ns, const float* ms, const float* c0,

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface.  Libraries go to ``_build/``
 beside this package (listed in ``.gitignore``), named by a digest of
-source and flags so an edited source rebuilds.  Building happens at
+the source, the ``csrc/`` headers it includes and the flags, so an
+edited source or header rebuilds.  Building happens at
 first use, never at import; ``build`` starts one ``nvcc`` per source,
 all at once.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,9 +41,24 @@ def nvcc_path() -> str:
     return path
 
 
+def _sources(name: str) -> bytes:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes
+    (``#include "..."``, also from a header), in a fixed order."""
+    seen, todo, out = set(), [f"{name}.cu"], []
+    while todo:
+        path = CSRC_DIR / todo.pop(0)
+        if path.name in seen:
+            continue
+        seen.add(path.name)
+        text = path.read_bytes()
+        out.append(text)
+        todo += re.findall(r'^#include "([^"]+)"', text.decode(), re.M)
+    return b"".join(out)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(_sources(name)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

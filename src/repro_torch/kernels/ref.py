@@ -416,6 +416,97 @@ def mlstm_recurrence_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv, di, df, dcmat, dn, dm
 
 
+def _stabiliser(i_pre: torch.Tensor, f_pre: torch.Tensor, m0: torch.Tensor):
+    """The mLSTM stabiliser's max-plus chain, step by step: each step's
+    log gates lf = f + m_{t-1} - m_t and li = i - m_t, the share of
+    ``maximum``'s gradient that goes to f + m_{t-1} (B, H, T each), and
+    the last m (B, H)."""
+    ih, fh = i_pre.float().transpose(1, 2), f_pre.float().transpose(1, 2)
+    m = m0.float()
+    lf, li, w_a = [], [], []
+    for i in range(ih.shape[-1]):
+        a = fh[..., i] + m
+        m_new = torch.maximum(a, ih[..., i])
+        lf.append(a - m_new)
+        li.append(ih[..., i] - m_new)
+        w_a.append(_max_weights(a, ih[..., i])[0])
+        m = m_new
+    return (*(torch.stack(x, -1) for x in (lf, li, w_a)), m)
+
+
+def _chunk_decays(lf: torch.Tensor, li: torch.Tensor, c0: int, c1: int):
+    """One chunk's decays (steps c0..c1-1): alpha_j (from the chunk's
+    start to j), w_j (j's update at the chunk's end) and W_jr (r's at j,
+    r <= j).  The log decays are sums of lf over each span itself (never
+    a difference of prefix sums: a first step's lf of ~-1e30 from m0 =
+    -1e30 would swallow every later lf of a prefix sum)."""
+    lfc, li_c = lf[..., c0:c1], li[..., c0:c1]
+    idx = torch.arange(c1 - c0, device=lf.device)
+    span = (idx[None, :, None] < idx[None, None, :]) \
+        & (idx[None, None, :] <= idx[:, None, None])          # (j, r, p)
+    lw = torch.where(span, lfc[..., None, None, :], 0.0).sum(-1)
+    big_w = torch.where(idx[None, :] <= idx[:, None],
+                        torch.exp(lw + li_c[..., None, :]), 0.0)
+    head = torch.where(idx[None, :] <= idx[:, None],
+                       lfc[..., None, :], 0.0).sum(-1)
+    return torch.exp(head), big_w[..., -1, :], big_w
+
+
+def _boundaries(cmat0, n0, v1, kh, bounds, gates):
+    """The boundary memories [C; n] ((hd + 1) x hd) before each chunk and
+    at the end: B_{c+1} = alpha_last B_c + [V; 1]^T diag(w) K."""
+    bnd = [torch.cat([cmat0.float(), n0.float()[..., None, :]], -2)]
+    for c0, c1 in bounds:
+        alpha, w, _ = gates(c0, c1)
+        upd = torch.einsum("bhsv,bhsk->bhvk", w[..., None] * v1[..., c0:c1, :],
+                           kh[..., c0:c1, :])
+        bnd.append(alpha[..., -1, None, None] * bnd[-1] + upd)
+    return bnd
+
+
+def mlstm_chunkwise_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, i_pre: torch.Tensor,
+                            f_pre: torch.Tensor, cmat0: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor,
+                            chunk: int = 64):
+    """``mlstm_recurrence_ref`` over every step (no lens) in the
+    chunkwise-parallel form of its kernel's chunkwise route
+    (``csrc/mlstm_scan.cu``): the same arguments and results (hs, cmat,
+    n, m), the arithmetic regrouped into products over chunks of
+    ``chunk`` steps.  Only the tests call it; it proves the algebra.
+
+    With lf, li, alpha, w and W as in ``mlstm_chunkwise_bwd_ref`` and the
+    boundary memory B_c = [C_c; n_c] before chunk c:
+      1. boundaries: B_{c+1} = alpha_last B_c + [V; 1]^T diag(w) K; the
+         last is the final [C; n], and m is the stabiliser's last;
+      2. per chunk, all at once: WS = W * Q K^T, s_j = alpha_j q_j . n_c
+         + sum_r WS_jr, den_j = max(|s_j|, 1), h_j = (alpha_j C_c q_j +
+         sum_r WS_jr v_r) / den_j."""
+    b, t, nh, hd = q.shape
+    qh, kh, vh = (x.float().transpose(1, 2) for x in (q, k, v))
+    lf, li, _, m = _stabiliser(i_pre, f_pre, m0)
+    bounds = [(c0, min(c0 + chunk, t)) for c0 in range(0, t, chunk)]
+    v1 = torch.cat([vh, torch.ones((b, nh, t, 1), dtype=torch.float32,
+                                   device=q.device)], -1)
+
+    def gates(c0, c1):
+        return _chunk_decays(lf, li, c0, c1)
+
+    bnd = _boundaries(cmat0, n0, v1, kh, bounds, gates)
+    hs = torch.empty((b, nh, t, hd), dtype=torch.float32, device=q.device)
+    for c, (c0, c1) in enumerate(bounds):
+        alpha, _, big_w = gates(c0, c1)
+        qc = qh[..., c0:c1, :]
+        ws = big_w * (qc @ kh[..., c0:c1, :].transpose(-1, -2))
+        s = alpha * (qc @ bnd[c][..., hd, :, None])[..., 0] + ws.sum(-1)
+        den = torch.clamp(s.abs(), min=1.0)
+        num = alpha[..., None] * (qc @ bnd[c][..., :hd, :].transpose(-1, -2)) \
+            + ws @ vh[..., c0:c1, :]
+        hs[..., c0:c1, :] = num / den[..., None]
+    return (hs.transpose(1, 2).contiguous(), bnd[-1][..., :hd, :],
+            bnd[-1][..., hd, :], m)
+
+
 def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, i_pre: torch.Tensor,
                             f_pre: torch.Tensor, cmat0: torch.Tensor,
@@ -455,46 +546,15 @@ def mlstm_chunkwise_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=q.device)
     qh, kh, vh, hh, dhh = (x.float().transpose(1, 2) for x in
                            (q, k, v, hs, dhs))                # (B,H,T,hd)
-    ih, fh = i_pre.float().transpose(1, 2), f_pre.float().transpose(1, 2)
-    # the stabiliser's max-plus chain and each step's log gates
-    m = m0.float()
-    m_prev, lf, li, w_a = [], [], [], []
-    for i in range(t):
-        a = fh[..., i] + m
-        m_new = torch.maximum(a, ih[..., i])
-        m_prev.append(m)
-        lf.append(a - m_new)
-        li.append(ih[..., i] - m_new)
-        w_a.append(_max_weights(a, ih[..., i])[0])
-        m = m_new
-    lf, li, w_a = (torch.stack(x, -1) for x in (lf, li, w_a))   # (B,H,T)
+    lf, li, w_a, _ = _stabiliser(i_pre, f_pre, m0)
     bounds = [(c0, min(c0 + chunk, t)) for c0 in range(0, t, chunk)]
-    ones = torch.ones((b, nh, t, 1), **f32)
-    v1 = torch.cat([vh, ones], -1)                             # [V, 1]
+    v1 = torch.cat([vh, torch.ones((b, nh, t, 1), **f32)], -1)  # [V, 1]
 
     def gates(c0, c1):
-        # the log decays as sums of lf over each span itself (never as a
-        # difference of prefix sums: a first step's lf of ~-1e30 from m0
-        # = -1e30 would swallow every later lf of a prefix sum)
-        lfc, li_c = lf[..., c0:c1], li[..., c0:c1]
-        n = c1 - c0
-        idx = torch.arange(n, device=q.device)
-        span = (idx[None, :, None] < idx[None, None, :]) \
-            & (idx[None, None, :] <= idx[:, None, None])      # (j, r, p)
-        lw = torch.where(span, lfc[..., None, None, :], 0.0).sum(-1)
-        big_w = torch.where(idx[None, :] <= idx[:, None],
-                            torch.exp(lw + li_c[..., None, :]), 0.0)
-        head = torch.where(idx[None, :] <= idx[:, None],
-                           lfc[..., None, :], 0.0).sum(-1)
-        return torch.exp(head), big_w[..., -1, :], big_w
+        return _chunk_decays(lf, li, c0, c1)
 
     # 1. the boundary memories [C; n] before each chunk and at the end
-    bnd = [torch.cat([cmat0.float(), n0.float()[..., None, :]], -2)]
-    for c0, c1 in bounds:
-        alpha, w, _ = gates(c0, c1)
-        upd = torch.einsum("bhsv,bhsk->bhvk", w[..., None] * v1[..., c0:c1, :],
-                           kh[..., c0:c1, :])
-        bnd.append(alpha[..., -1, None, None] * bnd[-1] + upd)
+    bnd = _boundaries(cmat0, n0, v1, kh, bounds, gates)
     # 2. per chunk: the normaliser's dot, den, ds and the masked products
     per = []
     for c, (c0, c1) in enumerate(bounds):

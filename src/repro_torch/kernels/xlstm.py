@@ -14,10 +14,18 @@ port ran them as Python loops of ~15-20 PyTorch ops a step.
     its new h into every CTA's next buffer with st.async, which
     completes an mbarrier's transaction there: no cluster barrier in the
     step loop.  The backward walks T in reverse over the states the
-    forward saved and reduces dh_{t-1} = R . dgates_t across its cluster.
-  * mLSTM: a CTA owns a slab of 32 v-rows of one (row, head)'s matrix
-    memory in registers across the whole walk and recomputes the
-    head's normaliser itself; no exchange between CTAs.  The backward is
+    forward saved and reduces dh_{t-1} = R . dgates_t across its cluster
+    by the same exchange: each CTA's partial sums go to each unit's
+    owner by st.async, added there in rank order.
+  * mLSTM, by two routes (``mlstm_scan_route``).  The walk (a call with
+    lens, or shorter than the source's crossover): a CTA owns a slab of
+    32 v-rows of one (row, head)'s matrix memory in registers across the
+    whole walk and recomputes the head's normaliser itself; no exchange
+    between CTAs.  Chunkwise (no lens, T at or above the crossover:
+    training's forward and the long call; ``ref.mlstm_chunkwise_fwd_ref``'s
+    algebra): the stabiliser's scan, the memory at chunk boundaries
+    walked over chunks of 64 steps, and h of every chunk at once as
+    masked matrix products.  The backward is
     chunkwise-parallel (``ref.mlstm_chunkwise_bwd_ref``'s algebra): the
     memory at chunk boundaries and its gradient carried back are walked
     over chunks of 64 steps, the gradients inside the chunks are masked
@@ -25,9 +33,11 @@ port ran them as Python loops of ~15-20 PyTorch ops a step.
     scan over lane segments; every sum in one fixed order, no atomics
     (bitwise on repeat).
 
-Every step's arithmetic is the same wherever a call starts and however
-long it is, so a call split in T with the state carried gives the bits
-of one call, and a row past its length keeps its state bit for bit.
+On the sLSTM and the mLSTM's walk, every step's arithmetic is the same
+wherever a call starts and however long it is, so a call split in T
+with the state carried gives the bits of one call, and a row past its
+length keeps its state bit for bit.  The mLSTM's chunkwise route sums
+in another order (bitwise on repeat, not across a split).
 
 ``SLSTMFn`` / ``MLSTMFn`` are the autograd Functions of the recurrences
 over every step (no lens): the kernels and their backward kernels on the
@@ -341,7 +351,54 @@ def _mlstm_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [_P] * 9 + [_P] * 4 + [_I] * 4 + [_P]
         fn.restype = _I
+        lib.apex_mlstm_scan_chunkwise.argtypes = [_P] * 8 + [_P] * 5 \
+            + [_I] * 4 + [_P]
+        lib.apex_mlstm_scan_chunkwise.restype = _I
+        lib.apex_mlstm_scan_chunkwise_scratch_floats.argtypes = [_I] * 4
+        lib.apex_mlstm_scan_chunkwise_scratch_floats.restype = \
+            ctypes.c_longlong
+        lib.apex_mlstm_scan_route.argtypes = [_I, _I]
+        lib.apex_mlstm_scan_route.restype = _I
     return lib
+
+
+_MLSTM_ROUTES = ("walk", "chunkwise")
+
+
+def mlstm_scan_route(t: int, lens: Optional[torch.Tensor]) -> str:
+    """The kernels ``mlstm_scan_cuda`` launches for a call of T ``t``, as
+    the library's dispatch says: "walk" (one kernel a call, step by step;
+    any call with ``lens``, and calls below the source's crossover) or
+    "chunkwise" (four kernels, parallel within chunks of 64 steps)."""
+    return _MLSTM_ROUTES[_mlstm_lib().apex_mlstm_scan_route(
+        t, int(lens is not None))]
+
+
+def _mlstm_scan(q, k, v, i_pre, f_pre, cmat, n, m, lens, route: str):
+    """``mlstm_scan_cuda``'s launch by the named route ("chunkwise" takes
+    no lens); the card's tests also call it to hold the chunkwise route
+    below the crossover."""
+    if not q.is_cuda:
+        raise ValueError("mlstm_scan_cuda takes CUDA tensors")
+    bsz, t, nh, hd = _check_mlstm(q, k, v, i_pre, f_pre, cmat, n, m)
+    _check_lens(lens, bsz, q.device)
+    lib = _mlstm_lib()
+    hs = torch.empty_like(q)
+    outs = [torch.empty_like(x) for x in (cmat, n, m)]
+    ins = [x.data_ptr() for x in (q, k, v, i_pre, f_pre, cmat, n, m)]
+    tail = [hs.data_ptr(), *[o.data_ptr() for o in outs], bsz, t, nh, hd,
+            _stream(q.device)]
+    if route == "walk":
+        rc = lib.apex_mlstm_scan(*ins, _ptr(lens), *tail)
+    elif route == "chunkwise" and lens is None:
+        scratch = torch.empty(
+            (lib.apex_mlstm_scan_chunkwise_scratch_floats(bsz, t, nh, hd),),
+            dtype=F32, device=q.device)
+        rc = lib.apex_mlstm_scan_chunkwise(*ins, scratch.data_ptr(), *tail)
+    else:
+        raise ValueError(f"no mLSTM route {route!r} with lens {lens}")
+    _raise_rc("mlstm_scan", rc)
+    return (hs, *outs)
 
 
 @counted
@@ -349,24 +406,18 @@ def mlstm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     i_pre: torch.Tensor, f_pre: torch.Tensor,
                     cmat: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
                     lens: Optional[torch.Tensor] = None):
-    """``ref.mlstm_recurrence_ref`` in one launch: q, k, v (B,T,H,hd),
+    """``ref.mlstm_recurrence_ref`` in one call: q, k, v (B,T,H,hd),
     i_pre, f_pre (B,T,H), cmat (B,H,hd,hd), n (B,H,hd), m (B,H), all fp32;
     lens (B,) int32 or None -> (hs (B,T,H,hd), cmat, n, m), fresh fp32
-    tensors.  On the current stream, no sync."""
+    tensors.  The walk is one launch; the chunkwise route
+    (``mlstm_scan_route``) launches the source's four kernels over one
+    scratch tensor.  On the current stream, no sync."""
     if not q.is_cuda:
         raise ValueError("mlstm_scan_cuda takes CUDA tensors")
-    bsz, t, nh, hd = _check_mlstm(q, k, v, i_pre, f_pre, cmat, n, m)
-    _check_lens(lens, bsz, q.device)
-    hs = torch.empty_like(q)
-    outs = [torch.empty_like(x) for x in (cmat, n, m)]
-    rc = _mlstm_lib().apex_mlstm_scan(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), i_pre.data_ptr(),
-        f_pre.data_ptr(), cmat.data_ptr(), n.data_ptr(), m.data_ptr(),
-        _ptr(lens), hs.data_ptr(), *[o.data_ptr() for o in outs],
-        bsz, t, nh, hd, _stream(q.device))
-    _raise_rc("mlstm_scan", rc)
+    outs = _mlstm_scan(q, k, v, i_pre, f_pre, cmat, n, m, lens,
+                       mlstm_scan_route(q.shape[1], lens))
     mlstm_scan_cuda.add_launch()
-    return (hs, *outs)
+    return outs
 
 
 def _mlstm_bwd_lib() -> ctypes.CDLL:

@@ -644,6 +644,79 @@ def test_mlstm_bwd_kernel_chunk_edges_states_and_ties(gen, t, hd, state):
         assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("state", ["carried", "zero", "tie"])
+@pytest.mark.parametrize("t", [63, 64, 65, 200, 1024, 4096])
+@pytest.mark.parametrize("hd", [32, 64, 384])
+def test_mlstm_chunkwise_route_matches_plain(gen, hd, t, state):
+    """The mLSTM forward's chunkwise route at T ending inside, on and past
+    a chunk of 64, from a carried state, the zero state (m0 = -1e30) and
+    with ties in the stabiliser: hs and the final state within 1e-5 of
+    the largest |value| of the plain walk (1e-4 at T 4096, as
+    chip_smoke's XLSTM_LONG_TOL), bitwise on repeat.  Below the crossover
+    (T 63-65) the route is named, as calls take the walk there."""
+    from repro_torch.kernels import xlstm
+    b, nh = (1, 4) if t == 4096 else (2, 4)
+    args = _mlstm_inputs(gen, b, t, nh, hd)
+    if state == "zero":
+        args[5:] = [torch.zeros_like(args[5]), torch.zeros_like(args[6]),
+                    torch.full_like(args[7], -1e30)]
+    elif state == "tie":
+        args[3], args[4], args[7] = _gates_with_ties(b, t, nh)
+    if xlstm.mlstm_scan_route(t, None) == "chunkwise":
+        call = xlstm.mlstm_scan_cuda
+    else:
+        def call(*a):
+            return xlstm._mlstm_scan(*a, None, "chunkwise")
+    got = call(*args)
+    again = call(*args)
+    want = ref.mlstm_recurrence_ref(*args)
+    for g, w, a in zip(got, want, again):
+        assert bool(torch.isfinite(g).all())
+        _close_to_max(g, w, 1e-4 if t == 4096 else 1e-5)
+        assert torch.equal(g, a)
+
+
+def test_mlstm_scan_route_keeps_the_walk_for_lens_and_short_calls(gen):
+    """Every call with lens, and every call below the crossover, takes the
+    walk (decode, the serving chunk, frozen rows, splits in T); the
+    chunkwise route begins at one T and holds above it."""
+    from repro_torch.kernels.xlstm import mlstm_scan_route
+    lens = torch.ones(2, dtype=torch.int32, device="cuda")
+    for t in (1, 17, 64, 1024, 4096):
+        assert mlstm_scan_route(t, lens) == "walk"
+    assert mlstm_scan_route(1, None) == "walk"
+    routes = [mlstm_scan_route(t, None) for t in range(1, 4097)]
+    first = routes.index("chunkwise")
+    assert 1 < first + 1 <= 128
+    assert set(routes[:first]) == {"walk"}
+    assert set(routes[first:]) == {"chunkwise"}
+    assert mlstm_scan_route(1024, None) == "chunkwise"
+
+
+@pytest.mark.parametrize("t", [1, 21, 1024])
+@pytest.mark.parametrize("r_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 192])
+def test_slstm_bwd_kernel_head_dims_dtypes_and_long(gen, hd, r_dtype, t):
+    """The sLSTM backward (its exchange with no cluster barrier a step) at
+    every head_dim the port serves, fp32 and bf16 R, one step, a few and
+    the train phase's 1024: within 1e-4 of each gradient's largest
+    element of the plain reverse walk, bitwise on repeat."""
+    from repro_torch.kernels.xlstm import slstm_scan_bwd_cuda, slstm_scan_cuda
+    gx, r, bias, c, n, h, m = _slstm_inputs(gen, 2, t, 4, hd, r_dtype)
+    hs, _, _, _, _, acts, cs, ns, ms = slstm_scan_cuda(gx, r, bias, c, n, h,
+                                                       m, save=True)
+    dhs = _randn(gen, hs.shape, torch.float32)
+    dstate = tuple(_randn(gen, c.shape, torch.float32) for _ in range(4))
+    got = slstm_scan_bwd_cuda(r, acts, cs, ns, ms, c, n, m, dhs, dstate)
+    again = slstm_scan_bwd_cuda(r, acts, cs, ns, ms, c, n, m, dhs, dstate)
+    want = ref.slstm_recurrence_bwd_ref(
+        r, acts.reshape(2, t, 4, 4 * hd), cs, ns, ms, c, n, m, dhs, dstate)
+    for g, w, a in zip(got, want, again):
+        assert bool(torch.isfinite(g).all())
+        _close_to_max(g.reshape(w.shape), w, 1e-4)
+        assert torch.equal(g, a)
+
+
 def test_slstm_kernel_long_frozen_row_and_split_bitwise(gen):
     """xlstm-125m's sLSTM over T 1024: a row of length 0 keeps its state
     bit for bit, a row stopped at 600 emits its frozen h over the rest,

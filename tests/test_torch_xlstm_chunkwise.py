@@ -1,4 +1,4 @@
-"""The mLSTM backward in chunkwise-parallel form on the CPU.
+"""The mLSTM forward and backward in chunkwise-parallel form on the CPU.
 
 ``kernels.ref.mlstm_chunkwise_bwd_ref`` states in PyTorch the algebra the
 card's backward kernel (``csrc/mlstm_scan_bwd.cu``) computes: boundary
@@ -17,6 +17,15 @@ final state's gradients carried or absent; m0 finite, m0 = -1e30 (the
 zero state) and inputs with ties in the stabiliser's max; in every case
 some steps with the normaliser's clamp max(|n . q|, 1) active and some
 with it inactive.
+
+``kernels.ref.mlstm_chunkwise_fwd_ref`` states the forward's chunkwise
+route (``csrc/mlstm_scan.cu``: boundary memories per chunk of 64 steps,
+each chunk's h as masked products) likewise: its hs and final state are
+held to the recurrent plain forward (``mlstm_recurrence_ref``) and to a
+float64 ``lax.scan`` of the reference's ``_mlstm_cell`` on the same fp32
+values, within FWD_TOL of the largest |value|, at T 1, 63, 64, 65 and 200
+(head_dim 64) and T 129 (head_dim 384), from a carried state, the zero
+state and with ties in the stabiliser.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +39,10 @@ from repro_torch.kernels import ref
 # fp32 sums in another order than the recurrent walk's: a few ulps of the
 # largest gradient over the shapes here
 GRAD_TOL = 1e-5
+# the forward's h and final state: fp32 sums in another order than the
+# walk's (the card's chunkwise route is held to XLSTM_TOL 1e-5 likewise)
+FWD_TOL = 1e-5
+FWD_CHUNK = 64   # the kernel's (APEX_MLSTM_FWD_CHUNK)
 B, H = 2, 2
 
 
@@ -151,3 +164,36 @@ def test_inputs_cover_both_sides_of_the_clamp_and_ties():
         above = torch.stack(above)
         assert bool(above.any()) and bool((~above).any()), kind
         assert (ties > 0) == (kind == "tie"), (kind, ties)
+
+
+def _jax_scan(q, k, v, i_pre, f_pre, cmat0, n0, m0):
+    def step(s, inp):
+        return rssm._mlstm_cell(rssm._MLSTMInputs(*inp), s)
+    xs = tuple(jnp.moveaxis(a, 1, 0) for a in (q, k, v, i_pre, f_pre))
+    fin, hs = jax.lax.scan(step, rssm.MLSTMState(cmat0, n0, m0), xs)
+    return jnp.moveaxis(hs, 0, 1), fin.cmat, fin.n, fin.m
+
+
+_jax_fwd = jax.jit(_jax_scan)
+
+
+@pytest.mark.parametrize("kind", ["finite", "zero", "tie"])
+@pytest.mark.parametrize("t,hd", [(1, 64), (63, 64), (64, 64), (65, 64),
+                                  (200, 64), (129, 384)])
+def test_chunkwise_fwd_matches_recurrent_and_jax_scan(t, hd, kind):
+    rng = np.random.default_rng([t, hd, ("finite", "zero", "tie").index(
+        kind), 7])
+    arrs = _inputs(rng, t, hd, kind)
+    args = [torch.from_numpy(a) for a in arrs]
+    got = ref.mlstm_chunkwise_fwd_ref(*args, chunk=FWD_CHUNK)
+    walk = ref.mlstm_recurrence_ref(*args)
+    with jax.enable_x64(True):
+        exact = [np.array(x, np.float64) for x in _jax_fwd(
+            *(jnp.asarray(a, jnp.float64) for a in arrs))]
+    for name, g, w, j in zip(("hs", "cmat", "n", "m"), got, walk, exact):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g - w).abs().max()) <= FWD_TOL * scale, name
+        assert float((g.double() - torch.from_numpy(j)).abs().max()) \
+            <= FWD_TOL * scale, name
