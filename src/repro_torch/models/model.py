@@ -29,6 +29,7 @@ from repro_torch.models.kv_cache import StackState
 from repro_torch.models.layers import embed, embed_init_, dense_init_, \
     rmsnorm, unembed
 from repro_torch.models.transformer import HostIO, QKVOut
+from repro_torch.tracing import span
 
 
 class ModelParams(NamedTuple):
@@ -241,19 +242,20 @@ def prefill_chunk(params: ModelParams, cfg: ModelConfig,
     past a row's real chunk end lies beyond its length, in the causal
     future of every later query, and is overwritten as the row advances).
     """
-    b, c = tokens.shape
-    x = embed(params.embedding, tokens)
-    positions = state.lengths[:, None] + torch.arange(
-        c, dtype=torch.int32, device=tokens.device)[None, :]
-    lens = chunk_lens.to(torch.int32)
-    x, new_state = transformer.stack_forward(params.blocks, cfg, x,
-                                             positions, state,
-                                             valid_lens=lens)
-    rows = torch.arange(b, device=tokens.device)
-    x_last = x[rows, lens.long().clamp(min=1) - 1]
-    return _logits(params, cfg, x_last), StackState(
-        per_entry=new_state.per_entry,
-        lengths=state.lengths + lens.to(state.lengths.dtype))
+    with span("model.chunk"):
+        b, c = tokens.shape
+        x = embed(params.embedding, tokens)
+        positions = state.lengths[:, None] + torch.arange(
+            c, dtype=torch.int32, device=tokens.device)[None, :]
+        lens = chunk_lens.to(torch.int32)
+        x, new_state = transformer.stack_forward(params.blocks, cfg, x,
+                                                 positions, state,
+                                                 valid_lens=lens)
+        rows = torch.arange(b, device=tokens.device)
+        x_last = x[rows, lens.long().clamp(min=1) - 1]
+        return _logits(params, cfg, x_last), StackState(
+            per_entry=new_state.per_entry,
+            lengths=state.lengths + lens.to(state.lengths.dtype))
 
 
 def decode_with_chunked_prefill(
@@ -295,13 +297,14 @@ def decode_step(params: ModelParams, cfg: ModelConfig,
     via ``host.x_carry``.  Returns (logits (B_total, V), new_state,
     qkv_out, x_final); ``x_final[Bg:]`` is the host rows' residual carry.
     """
-    x = embed(params.embedding, tokens)
-    positions = state.lengths
-    if host is not None:
-        x = torch.cat([x, host.x_carry.to(x.dtype)], dim=0)
-        positions = torch.cat([state.lengths,
-                               host.positions.to(state.lengths.dtype)])
-    x, new_state, qkv_out = transformer.decode_step(
-        params.blocks, cfg, x, positions, state, host)
-    logits = constrain(_logits(params, cfg, x), "batch", "vocab")
-    return logits, new_state, qkv_out, x
+    with span("model.decode"):
+        x = embed(params.embedding, tokens)
+        positions = state.lengths
+        if host is not None:
+            x = torch.cat([x, host.x_carry.to(x.dtype)], dim=0)
+            positions = torch.cat([state.lengths,
+                                   host.positions.to(state.lengths.dtype)])
+        x, new_state, qkv_out = transformer.decode_step(
+            params.blocks, cfg, x, positions, state, host)
+        logits = constrain(_logits(params, cfg, x), "batch", "vocab")
+        return logits, new_state, qkv_out, x

@@ -66,6 +66,7 @@ from repro_torch.models.kv_cache import AttnKV, StackState, write_rows
 from repro_torch.models.layers import (Params, attention_output, dense_init_,
                                        mlp, qkv_project, rmsnorm,
                                        rope_frequencies)
+from repro_torch.tracing import span
 
 
 class HostIO(NamedTuple):
@@ -209,13 +210,15 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``generator`` draws its router jitter (training only)."""
     if "ffn" not in p:
         return x
-    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    if "router" in p["ffn"]:
-        out, loss = moe.moe_ffn(p["ffn"], h2, cfg.moe, generator=generator)
-        if aux is not None:
-            aux.append(loss)
-        return _residual(x + out)
-    return _residual(x + mlp(p["ffn"], h2))
+    with span("model.ffn"):
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if "router" in p["ffn"]:
+            out, loss = moe.moe_ffn(p["ffn"], h2, cfg.moe,
+                                    generator=generator)
+            if aux is not None:
+                aux.append(loss)
+            return _residual(x + out)
+        return _residual(x + mlp(p["ffn"], h2))
 
 
 def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -229,40 +232,42 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
     layer's (B, S, KV, D)), the span is written in place at [lengths,
     lengths + T) and attended over the cache; without one (the stateless
     forward) over the span itself."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.resolved_head_dim, positions, inv_freq)
-    q = constrain(q, "batch", None, "heads", None)
-    if kc is None:
-        attn = ops.prefill_attention(q, k, v, prefix_len,
-                                     causal=cfg.causal)
+    with span("model.attention"):
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, positions, inv_freq)
+        q = constrain(q, "batch", None, "heads", None)
+        if kc is None:
+            attn = ops.prefill_attention(q, k, v, prefix_len,
+                                         causal=cfg.causal)
+        else:
+            b, t = x.shape[:2]
+            rows = torch.arange(b, device=x.device)[:, None]
+            # padding past the cache end lands on its last column, which
+            # no real token occupies at prefill and decode overwrites
+            # before reading (the reference's scatter drops out-of-range
+            # writes instead)
+            cols = positions.long().clamp(max=kc.shape[1] - 1)
+            # in place: the reference's .at[rows, cols].set on a donated
+            # cache
+            if is_dtensor(kc):
+                write_rows(kc, cols, k.to(kc.dtype))
+                write_rows(vc, cols, v.to(vc.dtype))
+            else:
+                kc[rows, cols] = k.to(kc.dtype)
+                vc[rows, cols] = v.to(vc.dtype)
+            if not cfg.causal:
+                # full attention over the written positions: the causal
+                # mask OR a prefix reaching the span's end is exactly
+                # k < lengths + T
+                prefix_len = (lengths + t).to(torch.int32)
+            # causality on absolute positions (k <= lengths + i) also
+            # hides every cache column past the span just written
+            attn = ops.prefill_attention(q, kc, vc, prefix_len,
+                                         q_offset=lengths)
         attn = constrain(attn, "batch", None, "heads", None)
-        return _ffn(p, cfg, _residual(x + attention_output(p["attn"], attn)),
-                    aux,
-                    generator)
-    b, t = x.shape[:2]
-    rows = torch.arange(b, device=x.device)[:, None]
-    # padding past the cache end lands on its last column, which no real
-    # token occupies at prefill and decode overwrites before reading (the
-    # reference's scatter drops out-of-range writes instead)
-    cols = positions.long().clamp(max=kc.shape[1] - 1)
-    # in place: the reference's .at[rows, cols].set on a donated cache
-    if is_dtensor(kc):
-        write_rows(kc, cols, k.to(kc.dtype))
-        write_rows(vc, cols, v.to(vc.dtype))
-    else:
-        kc[rows, cols] = k.to(kc.dtype)
-        vc[rows, cols] = v.to(vc.dtype)
-    if not cfg.causal:
-        # full attention over the written positions: the causal mask OR
-        # a prefix reaching the span's end is exactly k < lengths + T
-        prefix_len = (lengths + t).to(torch.int32)
-    # causality on absolute positions (k <= lengths + i) also hides every
-    # cache column past the span just written
-    attn = ops.prefill_attention(q, kc, vc, prefix_len, q_offset=lengths)
-    attn = constrain(attn, "batch", None, "heads", None)
-    return _ffn(p, cfg, _residual(x + attention_output(p["attn"], attn)),
-                aux)
+        x = _residual(x + attention_output(p["attn"], attn))
+    return _ffn(p, cfg, x, aux, generator)
 
 
 def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -431,26 +436,29 @@ def _attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     full attention are the same here, as in the reference.
 
     Returns (x_new (pre-commit), q, k, v) with q/k/v (B, 1, heads, D)."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)[:, None]               # (B,1,d)
-    q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.resolved_head_dim, positions[:, None], inv_freq)
-    bg = device_batch
-    # device rows: write the fresh token in place, attend over the cache
-    if is_dtensor(kc):
-        write_rows(kc, lengths[:, None], k[:bg].to(kc.dtype))
-        write_rows(vc, lengths[:, None], v[:bg].to(vc.dtype))
-    else:
-        kc[rows, lengths] = k[:bg, 0].to(kc.dtype)
-        vc[rows, lengths] = v[:bg, 0].to(vc.dtype)
-    attn = ops.decode_attention(q[:bg, 0], kc, vc, (lengths + 1).int())
-    if host is not None:
-        if layer_idx == host.consume_layer:
-            attn_c = host.attn_in.to(attn.dtype)
+    with span("model.attention"):
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)[:, None]           # (B,1,d)
+        q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.resolved_head_dim, positions[:, None],
+                              inv_freq)
+        bg = device_batch
+        # device rows: write the fresh token in place, attend over the
+        # cache
+        if is_dtensor(kc):
+            write_rows(kc, lengths[:, None], k[:bg].to(kc.dtype))
+            write_rows(vc, lengths[:, None], v[:bg].to(vc.dtype))
         else:
-            attn_c = torch.zeros((x.shape[0] - bg,) + attn.shape[1:],
-                                 dtype=attn.dtype, device=x.device)
-        attn = torch.cat([attn, attn_c], dim=0)                   # (B,H,D)
-    x = x + attention_output(p["attn"], attn[:, None])[:, 0]
+            kc[rows, lengths] = k[:bg, 0].to(kc.dtype)
+            vc[rows, lengths] = v[:bg, 0].to(vc.dtype)
+        attn = ops.decode_attention(q[:bg, 0], kc, vc, (lengths + 1).int())
+        if host is not None:
+            if layer_idx == host.consume_layer:
+                attn_c = host.attn_in.to(attn.dtype)
+            else:
+                attn_c = torch.zeros((x.shape[0] - bg,) + attn.shape[1:],
+                                     dtype=attn.dtype, device=x.device)
+            attn = torch.cat([attn, attn_c], dim=0)               # (B,H,D)
+        x = x + attention_output(p["attn"], attn[:, None])[:, 0]
     return _ffn(p, cfg, x[:, None])[:, 0], q, k, v
 
 

@@ -82,6 +82,7 @@ from repro_torch.serving.sampler import sample
 from repro_torch.serving.tiermove import (demote_slot_to_host_row,
                                           upload_host_kv_to_slot,
                                           zero_recurrent_rows)
+from repro_torch.tracing import span
 
 __all__ = ["Engine", "EngineConfig", "EngineStats", "resolve_device"]
 
@@ -232,6 +233,13 @@ class Engine:
             placer.cached_prefix_probe = self.prefix.match_len
             if self.executor is not None:
                 self.executor.pool.on_evict = self._on_pool_evict
+        # device K/V rows the engine holds: decode slots, staging rows and
+        # prefix rows, each of cache_len positions
+        self._kv_rows = 0
+        if cfg.has_kv_cache:
+            self._kv_rows = self.e.device_slots + len(self.lc.staging) + (
+                self.prefix_state.lengths.shape[0]
+                if self.prefix_state is not None else 0)
 
     def _on_pool_evict(self, owner: int) -> None:
         """The pool's LRU reclaimed a cached prefix chain: the first rung
@@ -622,6 +630,10 @@ class Engine:
 
     # --- one engine iteration ------------------------------------------------
     def step(self) -> None:
+        with span("serve.step"):
+            self._step()
+
+    def _step(self) -> None:
         if self.executor is not None and self.e.cold_page_compress_after > 0:
             # before the timed section: compression is pool maintenance,
             # not iteration work the calibrator should learn from.  The
@@ -637,22 +649,25 @@ class Engine:
                 # after t0 on purpose: the spike lands inside the timed
                 # section, so the calibrator sees it like a real stall
                 time.sleep(spike)
-        self._apply_host_cancels()
-        admitted = self._admit()
-        self._rebalance()
+        with span("serve.admit"):
+            self._apply_host_cancels()
+            admitted = self._admit()
+            self._rebalance()
         # rows whose request already reached max_new_tokens straight out
         # of prefill, and chunked admissions still mid-prefill, do not
         # ride this iteration's decode batch
         active_rows = [i for i, r in enumerate(self.lc.slots)
                        if r is not None and not r.done
                        and r.phase is Phase.DECODE_DEVICE]
-        decision = self._schedule(admitted, active_rows)
+        with span("serve.schedule"):
+            decision = self._schedule(admitted, active_rows)
         plan = None
         if self._chunked and self.lc.staging_order:
             budget = (decision.chunk_tokens
                       if decision is not None and self._sched_chunk_aware
                       else self._fallback_chunk_budget(active_rows))
-            plan = self.lc.plan_chunks(budget)
+            with span("serve.plan"):
+                plan = self.lc.plan_chunks(budget)
         tokens = np.zeros((self.e.device_slots,), np.int64)
         for i in active_rows:
             tokens[i] = self.lc.slots[i].output[-1]
@@ -681,6 +696,7 @@ class Engine:
             self.stats.prefill_compilations = len(self._prefill_shapes)
         self.stats.iterations += 1
         self.lc.note_iteration()
+        self._note_kv()
         dt = time.perf_counter() - t0
         self.stats.wall_time += dt
         predicted = getattr(decision, "predicted_time", 0.0) \
@@ -691,11 +707,36 @@ class Engine:
             if self._calibrator is not None:
                 self._calibrator.observe_step(predicted, dt)
                 self.stats.step_error_ewma = self._calibrator.step_error_ewma
-        self.lc.retire(free_host=(self.executor.free
-                                  if self.executor is not None
-                                  else lambda rid: None),
-                       publish=((lambda r: publish_retired(self, r))
-                                if self.prefix is not None else None))
+        with span("serve.retire"):
+            self.lc.retire(free_host=(self.executor.free
+                                      if self.executor is not None
+                                      else lambda rid: None),
+                           publish=(self._publish if self.prefix is not None
+                                    else None))
+
+    def _note_kv(self) -> None:
+        """This iteration's device K/V occupancy, from host-side lengths:
+        positions holding tokens in the decode slots, the staging rows and
+        the prefix rows, against those rows' reserved positions."""
+        if not self._kv_rows:
+            return
+        lc = self.lc
+        used = sum(r.total_len - 1 for r in lc.slots
+                   if r is not None and r.phase is Phase.DECODE_DEVICE)
+        used += sum(lc.staging[row].consumed for row in lc.staging_order)
+        if self.prefix_state is not None:
+            used += sum(len(e.tokens) for e in self.prefix.entries.values()
+                        if e.tier == "device")
+        self.stats.kv_used_tokens += used
+        self.stats.kv_reserved_tokens += self._kv_rows * self.e.cache_len
+
+    def _finish_chunks(self, plan: ChunkPlan, clogits: torch.Tensor) -> None:
+        with span("serve.finish_chunks"):
+            finish_chunks(self, plan, clogits)
+
+    def _publish(self, req: Request) -> bool:
+        with span("serve.publish"):
+            return publish_retired(self, req)
 
     def _chunk_inputs(self, plan: ChunkPlan):
         return (to_device(plan.tokens, self.device),
@@ -713,14 +754,14 @@ class Engine:
         if not active_rows:
             clogits, self.staging_state = prefill_chunk(
                 self.params, self.cfg, ctoks, clens, self.staging_state)
-            finish_chunks(self, plan, clogits)
+            self._finish_chunks(plan, clogits)
             return
         logits, self.state, _, _, clogits, self.staging_state = \
             decode_with_chunked_prefill(
                 self.params, self.cfg, tokens, self.state,
                 self._idle_host_io(), ctoks, clens, self.staging_state)
         self._commit_device(logits, active_rows)
-        finish_chunks(self, plan, clogits)
+        self._finish_chunks(plan, clogits)
 
     def _idle_host_io(self) -> Optional[HostIO]:
         """The step's ``HostIO`` when no cohort is live: None, except for a
@@ -750,14 +791,16 @@ class Engine:
                        active_rows: List[int]) -> np.ndarray:
         """Greedy tokens of every row, read back once -- the iteration's
         one sync; device rows append theirs."""
-        toks = sample(logits, temperature=self.e.temperature).cpu().numpy()
-        now = time.perf_counter()
-        for i in active_rows:
-            r = self.lc.slots[i]
-            r.output.append(int(toks[i]))
-            self.stats.device_tokens += 1
-            if r.first_token_time is None:
-                r.first_token_time = now
+        with span("serve.commit"):
+            toks = sample(logits,
+                          temperature=self.e.temperature).cpu().numpy()
+            now = time.perf_counter()
+            for i in active_rows:
+                r = self.lc.slots[i]
+                r.output.append(int(toks[i]))
+                self.stats.device_tokens += 1
+                if r.first_token_time is None:
+                    r.first_token_time = now
         return toks
 
     def _step_overlap(self, tokens: torch.Tensor, cohort: Cohort,
@@ -782,33 +825,37 @@ class Engine:
         if self._pending_job is not None:
             t_wait = time.perf_counter()
             fell_back = False
-            try:
-                if wait:
-                    timeout = 120.0
-                    if self.e.recompute_fallback and self._pending_deadline:
-                        timeout = max(
-                            self._pending_deadline - time.perf_counter(),
-                            0.001)
-                    out = self.executor.result(self._pending_job,
-                                               timeout=timeout)
-                else:
-                    out = self.executor.poll(self._pending_job)
-                    if out is None and self.e.recompute_fallback \
-                            and self._pending_deadline \
-                            and time.perf_counter() > self._pending_deadline:
-                        raise TimeoutError(
-                            f"host job {self._pending_job} missed its "
-                            "watchdog deadline")
-            except (RuntimeError, TimeoutError):
-                # a worker exception (RuntimeError from the executor) or
-                # the deadline: without the fallback, host faults fail
-                # the engine
-                if not self.e.recompute_fallback:
-                    raise
-                out = self._host_fallback()
-                fell_back = True
+            self.stats.host_consumes += 1
+            with span("serve.host_wait"):
+                try:
+                    if wait:
+                        timeout = 120.0
+                        if self.e.recompute_fallback \
+                                and self._pending_deadline:
+                            timeout = max(self._pending_deadline
+                                          - time.perf_counter(), 0.001)
+                        out = self.executor.result(self._pending_job,
+                                                   timeout=timeout)
+                    else:
+                        out = self.executor.poll(self._pending_job)
+                        if out is None and self.e.recompute_fallback \
+                                and self._pending_deadline \
+                                and time.perf_counter() \
+                                > self._pending_deadline:
+                            raise TimeoutError(
+                                f"host job {self._pending_job} missed its "
+                                "watchdog deadline")
+                except (RuntimeError, TimeoutError):
+                    # a worker exception (RuntimeError from the executor)
+                    # or the deadline: without the fallback, host faults
+                    # fail the engine
+                    if not self.e.recompute_fallback:
+                        raise
+                    out = self._host_fallback()
+                    fell_back = True
             self.stats.host_wait_time += time.perf_counter() - t_wait
             if out is None:
+                self.stats.host_late_polls += 1
                 host_idle = ctl.host_io(cohort)._replace(
                     consume_layer=-1, emit_layer=-1, window_start=0,
                     window_end=0)
@@ -822,7 +869,7 @@ class Engine:
                         self.params, self.cfg, tokens, self.state, host_idle,
                         *self._chunk_inputs(plan), self.staging_state)
                 self._commit_device(logits, active_rows)
-                finish_chunks(self, plan, clogits)
+                self._finish_chunks(plan, clogits)
                 return
             buf = np.zeros(tuple(cohort.attn_in.shape), np.float32)
             buf[np.asarray(valid, np.int64)] = out
@@ -854,28 +901,29 @@ class Engine:
         def submit_host_job(qkv: Optional[QKVOut]) -> None:
             if emit_layer < 0 or breaker_open:
                 return
-            ready = None
-            if self.device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record()
-            # submitted before the chunk and before the logits sync: the
-            # worker copies Q/K/V and computes while the card runs them
-            job = next(self._job_ids)
-            self.executor.submit(job, emit_layer, cohort.request_ids,
-                                 qkv.q, qkv.k, qkv.v, positions, rows=idx,
-                                 ready=ready)
-            self._pending_job = job
-            # watchdog stash: what the job needs to be rerun here
-            self._pending_meta = dict(
-                layer=emit_layer, request_ids=cohort.request_ids,
-                q=qkv.q, k=qkv.k, v=qkv.v, positions=positions, rows=idx)
-            pred = 0.0
-            if self._calibrator is not None:
-                pred = self._calibrator.t_catt(
-                    len(valid), float(np.mean(positions + 1)), layers=1)
-                self._pending_host_pred = pred
-            self._pending_deadline = time.perf_counter() + max(
-                pred * self.e.host_job_slack, self.e.host_job_min_timeout)
+            with span("serve.host_submit"):
+                ready = None
+                if self.device.type == "cuda":
+                    ready = torch.cuda.Event()
+                    ready.record()
+                # submitted before the chunk and before the logits sync: the
+                # worker copies Q/K/V and computes while the card runs them
+                job = next(self._job_ids)
+                self.executor.submit(job, emit_layer, cohort.request_ids,
+                                     qkv.q, qkv.k, qkv.v, positions, rows=idx,
+                                     ready=ready)
+                self._pending_job = job
+                # watchdog stash: what the job needs to be rerun here
+                self._pending_meta = dict(
+                    layer=emit_layer, request_ids=cohort.request_ids,
+                    q=qkv.q, k=qkv.k, v=qkv.v, positions=positions, rows=idx)
+                pred = 0.0
+                if self._calibrator is not None:
+                    pred = self._calibrator.t_catt(
+                        len(valid), float(np.mean(positions + 1)), layers=1)
+                    self._pending_host_pred = pred
+                self._pending_deadline = time.perf_counter() + max(
+                    pred * self.e.host_job_slack, self.e.host_job_min_timeout)
 
         clogits = None
         if plan is None:
@@ -892,9 +940,10 @@ class Engine:
             # the async host tier is suspect: this layer's host attention
             # runs here, synchronously (ASYM_PIPELINE semantics, no
             # injection), so in-flight journeys finish without a worker
-            out = self.executor.execute_sync(
-                next(self._job_ids), emit_layer, cohort.request_ids,
-                qkv.q, qkv.k, qkv.v, positions, rows=idx)
+            with span("serve.host_wait"):
+                out = self.executor.execute_sync(
+                    next(self._job_ids), emit_layer, cohort.request_ids,
+                    qkv.q, qkv.k, qkv.v, positions, rows=idx)
             buf = np.zeros(tuple(cohort.attn_in.shape), np.float32)
             buf[idx] = out
             cohort.attn_in = to_device(buf, self.device)
@@ -922,7 +971,7 @@ class Engine:
                 ctl.layer_progress(cohort)
         ctl.advance(cohort)
         if plan is not None:
-            finish_chunks(self, plan, clogits)
+            self._finish_chunks(plan, clogits)
 
     # --- driver -------------------------------------------------------------
     def run(self, requests: List[Request], *, max_iterations: int = 100000

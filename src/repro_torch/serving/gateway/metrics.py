@@ -8,7 +8,8 @@ every labeled sample of that family — distributions with no samples
 yet are skipped rather than emitted as NaN.
 
 Port of ``repro/serving/gateway/metrics.py``: the same families and
-label sets.
+label sets, and two pairs of the port's own: K/V used and reserved,
+and host-job consumes and late polls.
 """
 from __future__ import annotations
 
@@ -64,6 +65,18 @@ _ENGINE_METRICS: Dict[str, Tuple[str, str, str, Dict[str, str]]] = {
                          "Mean occupied device slots per iteration", {}),
     "host_occupancy": ("host_occupancy", "gauge",
                        "Mean occupied host slots per iteration", {}),
+    "kv_used_tokens": ("kv_used_tokens_total", "counter",
+                       "Device KV positions holding tokens (decode slots, "
+                       "staging and prefix rows), summed per iteration",
+                       {}),
+    "kv_reserved_tokens": ("kv_reserved_tokens_total", "counter",
+                           "Device KV positions reserved by those rows, "
+                           "summed per iteration", {}),
+    "host_consumes": ("host_consumes_total", "counter",
+                      "Tries to take the pending host-attention job", {}),
+    "host_late_polls": ("host_late_polls_total", "counter",
+                        "Tries that found the host job unfinished (the "
+                        "host rows rode along untouched)", {}),
     "prefill_chunks": ("prefill_chunks_total", "counter",
                        "Chunked-prefill chunks executed", {}),
     "prefix_lookups": ("prefix_cache_lookups_total", "counter",

@@ -242,6 +242,15 @@ class EngineStats:
     # per-tier occupancy: slot-iterations accumulated each iteration
     device_slot_iterations: int = 0
     host_slot_iterations: int = 0
+    # device K/V occupancy summed each iteration over the decode slots,
+    # staging rows and prefix rows: positions holding tokens, and the
+    # rows' reserved positions (rows x cache_len)
+    kv_used_tokens: int = 0
+    kv_reserved_tokens: int = 0
+    # ASYNC_OVERLAP / ASYM_PIPELINE: tries to take the pending host job,
+    # and tries that found it unfinished (the host rows rode untouched)
+    host_consumes: int = 0
+    host_late_polls: int = 0
     # latency distributions over retired requests (seconds)
     ttft_samples: List[float] = dataclasses.field(default_factory=list)
     itl_samples: List[float] = dataclasses.field(default_factory=list)
@@ -335,6 +344,10 @@ class EngineStats:
             "deadline_rejections": float(self.deadline_rejections),
             "device_occupancy": self.device_occupancy,
             "host_occupancy": self.host_occupancy,
+            "kv_used_tokens": float(self.kv_used_tokens),
+            "kv_reserved_tokens": float(self.kv_reserved_tokens),
+            "host_consumes": float(self.host_consumes),
+            "host_late_polls": float(self.host_late_polls),
             "prefill_chunks": float(self.prefill_chunks),
             "prefix_lookups": float(self.prefix_lookups),
             "prefix_hits": float(self.prefix_hits),
@@ -709,6 +722,8 @@ class RequestLifecycle:
             if tier == "device":
                 self.slots[slot] = req          # reserve before prefill
                 req.slot = slot
+                if req.admit_time is None:      # a re-admission keeps it
+                    req.admit_time = now
                 placements.append((req, "device", slot))
                 continue
             try:
@@ -723,6 +738,8 @@ class RequestLifecycle:
             self.host_slot_owner[hslot] = req.request_id
             self.host_requests[req.request_id] = req
             req.slot = hslot
+            if req.admit_time is None:
+                req.admit_time = now
             placements.append((req, "host", hslot))
         return placements
 

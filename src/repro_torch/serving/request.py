@@ -50,6 +50,11 @@ class Request:
     tier: Optional[str] = None          # "device" | "host" once admitted
     kv_reserved: int = 0                # tokens held in the admission budget
     layer_progress: int = 0             # APEX rule-4 partial progress
+    # perf_counter when the request first left the admission queue for
+    # a slot or staging row; a re-queued request (a recompute victim)
+    # keeps its first stamp.  With arrival_time and first_token_time it
+    # splits a request's life into queue, prefill and decode
+    admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     # rejection reason: set when the request is refused at submit or

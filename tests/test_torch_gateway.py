@@ -570,19 +570,37 @@ def _labelled_families(text):
     return out
 
 
+# the port's own engine families: K/V occupancy and host-job polls, per
+# replica
+PORT_FAMILIES = {f"apex_engine_{name}_total" for name in (
+    "kv_used_tokens", "kv_reserved_tokens", "host_consumes",
+    "host_late_polls")}
+
+
 def test_prometheus_families_match_reference(gateway_stack, ref_stack):
     """After both gateways served the cross prompts, ``render_prometheus``
     of the two pools gives the same families, each with the same label
-    names, and the same HELP and TYPE lines."""
+    names, and the same HELP and TYPE lines; the port adds its own
+    counter families, one sample per replica, and only those."""
     _, _, pool, gateway = gateway_stack
     ref_pool, ref_gateway = ref_stack
     for port in (gateway.port, ref_gateway.port):
         assert sse_chat(HOST, port, [5, 6, 7], max_new_tokens=4,
                         timeout=WAIT)["status"] == 200
     mine, ref = render_prometheus(pool), ref_render(ref_pool)
-    assert _labelled_families(mine) == _labelled_families(ref)
-    meta = re.compile(r"^# (?:HELP|TYPE) .*$", re.M)
-    assert meta.findall(mine) == meta.findall(ref)
+    fams = _labelled_families(mine)
+    assert {f: fams.pop(f) for f in PORT_FAMILIES} == {
+        f: {("replica",)} for f in PORT_FAMILIES}
+    assert fams == _labelled_families(ref)
+    meta = re.compile(r"^# (?:HELP|TYPE) (\S+) .*$", re.M)
+    assert [m.group(0) for m in meta.finditer(mine)
+            if m.group(1) not in PORT_FAMILIES] == \
+        [m.group(0) for m in meta.finditer(ref)]
+    assert re.search(r"^# TYPE apex_engine_host_late_polls_total counter$",
+                     mine, re.M)
+    sample = re.search(r'^apex_engine_kv_reserved_tokens_total'
+                       r'\{replica="0"\} (\d+)$', mine, re.M)
+    assert sample and int(sample.group(1)) > 0
     # the edge counters the gateway passes in render the same way
     counters = {"requests": 3, "streams": 2, "shed_429": 1, "shed_503": 0,
                 "cancelled": 0, "errors": 0}
