@@ -13,7 +13,9 @@ reference: the caller provides precomputed embeddings):
                   of the text (PaliGemma).
 
 The serving paths (bucketed and chunked prefill, decode) take token ids,
-as the reference's engine does.
+as the reference's engine does.  The decode step and the prefill chunk
+take a ``graphs.StepGraphs``, which replays them where it holds a
+capture (``capture_decode``, ``capture_chunk``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.graphs import Chain, StepGraphs
 from repro_torch.models.kv_cache import StackState
 from repro_torch.models.layers import embed, embed_init_, dense_init_, \
     rmsnorm, unembed
@@ -223,9 +226,47 @@ def prefill_bucketed(params: ModelParams, cfg: ModelConfig,
     return _logits(params, cfg, x_last), new_state
 
 
+def _bound(params: ModelParams, state: StackState) -> Tuple[int, ...]:
+    """What a captured step is bound to: the weights and the state's
+    storage (its K/V caches and recurrent states are written in place)."""
+    return (params.embedding["embed"].data_ptr(),) + tuple(
+        t.data_ptr() for entry in state.per_entry for t in entry)
+
+
+def _run(graphs: Optional[StepGraphs], name: str, params: ModelParams,
+         state: StackState, build: Callable[[], Chain],
+         inputs: Dict[str, torch.Tensor],
+         outputs: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    graphs = graphs or StepGraphs()
+    return graphs.run(name, _bound(params, state), build, inputs, outputs)
+
+
+def _chunk_chain(params: ModelParams, cfg: ModelConfig,
+                 state: StackState) -> Chain:
+    def embed_span(io):
+        x = embed(params.embedding, io["tokens"])
+        io["x"] = x
+        io["positions"] = io["lengths"][:, None] + torch.arange(
+            x.shape[1], dtype=torch.int32, device=x.device)[None, :]
+        io["valid_lens"] = io["chunk_lens"].to(torch.int32)
+
+    def last_logits(io):
+        x = io["x"]
+        rows = torch.arange(x.shape[0], device=x.device)
+        io["logits"] = _logits(params, cfg, x[
+            rows, io["valid_lens"].long().clamp(min=1) - 1])
+
+    chain = Chain()
+    chain.add(embed_span)
+    transformer.span_layers(chain, params.blocks, cfg, state)
+    chain.add(last_logits)
+    return chain
+
+
 def prefill_chunk(params: ModelParams, cfg: ModelConfig,
                   tokens: torch.Tensor, chunk_lens: torch.Tensor,
-                  state: StackState) -> Tuple[torch.Tensor, StackState]:
+                  state: StackState, graphs: Optional[StepGraphs] = None
+                  ) -> Tuple[torch.Tensor, StackState]:
     """Advance a batch of in-progress prefills by one right-padded chunk.
 
     tokens: (B, C) -- row b's next ``chunk_lens[b]`` prompt tokens,
@@ -235,6 +276,7 @@ def prefill_chunk(params: ModelParams, cfg: ModelConfig,
     ``lengths + i`` against the accumulated K/V, so causality hides every
     padded or idle position; recurrent blocks resume their carried state
     and freeze at ``chunk_lens[b]``.  K/V and state are written in place.
+    ``graphs`` replays the step where it holds a capture of it.
 
     Returns (logits (B, V) of each row's last real chunk token -- only
     meaningful for rows whose prompt completes in this chunk -- and the
@@ -243,19 +285,19 @@ def prefill_chunk(params: ModelParams, cfg: ModelConfig,
     future of every later query, and is overwritten as the row advances).
     """
     with span("model.chunk"):
-        b, c = tokens.shape
-        x = embed(params.embedding, tokens)
-        positions = state.lengths[:, None] + torch.arange(
-            c, dtype=torch.int32, device=tokens.device)[None, :]
+        out = _run(graphs, "chunk", params, state,
+                   lambda: _chunk_chain(params, cfg, state),
+                   _chunk_inputs(tokens, chunk_lens, state), ("logits",))
         lens = chunk_lens.to(torch.int32)
-        x, new_state = transformer.stack_forward(params.blocks, cfg, x,
-                                                 positions, state,
-                                                 valid_lens=lens)
-        rows = torch.arange(b, device=tokens.device)
-        x_last = x[rows, lens.long().clamp(min=1) - 1]
-        return _logits(params, cfg, x_last), StackState(
-            per_entry=new_state.per_entry,
+        return out["logits"], StackState(
+            per_entry=state.per_entry,
             lengths=state.lengths + lens.to(state.lengths.dtype))
+
+
+def _chunk_inputs(tokens: torch.Tensor, chunk_lens: torch.Tensor,
+                  state: StackState) -> Dict[str, torch.Tensor]:
+    return {"tokens": tokens, "chunk_lens": chunk_lens,
+            "lengths": state.lengths}
 
 
 def decode_with_chunked_prefill(
@@ -263,7 +305,8 @@ def decode_with_chunked_prefill(
         state: StackState, host: Optional[HostIO],
         chunk_tokens: torch.Tensor, chunk_lens: torch.Tensor,
         chunk_state: StackState,
-        after_decode: Optional[Callable[[Optional[QKVOut]], None]] = None):
+        after_decode: Optional[Callable[[Optional[QKVOut]], None]] = None,
+        graphs: Optional[StepGraphs] = None):
     """One engine iteration's device work: the unified decode step and one
     prefill chunk, enqueued back to back on the current stream.
 
@@ -277,34 +320,115 @@ def decode_with_chunked_prefill(
     new_chunk_state)`` -- the first four as ``decode_step``, the last two
     as ``prefill_chunk``.
     """
-    logits, new_state, qkv_out, x_final = decode_step(params, cfg, tokens,
-                                                      state, host)
+    logits, new_state, qkv_out, x_final = decode_step(
+        params, cfg, tokens, state, host, graphs=graphs)
     if after_decode is not None:
         after_decode(qkv_out)
     chunk_logits, new_chunk = prefill_chunk(params, cfg, chunk_tokens,
-                                            chunk_lens, chunk_state)
+                                            chunk_lens, chunk_state,
+                                            graphs=graphs)
     return logits, new_state, qkv_out, x_final, chunk_logits, new_chunk
+
+
+def _host_controls(cfg: ModelConfig, host: HostIO,
+                   device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(transformer.host_controls(cfg, host))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _decode_inputs(cfg: ModelConfig, tokens: torch.Tensor,
+                   state: StackState, host: Optional[HostIO]
+                   ) -> Dict[str, torch.Tensor]:
+    inputs = {"tokens": tokens, "lengths": state.lengths}
+    if host is not None:
+        inputs.update(x_carry=host.x_carry, host_positions=host.positions,
+                      attn_in=host.attn_in, row_valid=host.row_valid,
+                      controls=_host_controls(cfg, host,
+                                              state.lengths.device))
+    return inputs
+
+
+def _decode_chain(params: ModelParams, cfg: ModelConfig, state: StackState,
+                  host_rows: Optional[int]) -> Chain:
+    def embed_rows(io):
+        x = embed(params.embedding, io["tokens"])
+        positions = io["lengths"]
+        if host_rows is not None:
+            x = torch.cat([x, io["x_carry"].to(x.dtype)], dim=0)
+            positions = torch.cat([io["lengths"], io["host_positions"].to(
+                io["lengths"].dtype)])
+        io["x"] = x
+        io["positions"] = positions
+
+    def logits(io):
+        io["logits"] = constrain(_logits(params, cfg, io["x"]), "batch",
+                                 "vocab")
+
+    chain = Chain()
+    chain.add(embed_rows)
+    transformer.decode_layers(chain, params.blocks, cfg, state, host_rows)
+    chain.add(logits)
+    return chain
 
 
 def decode_step(params: ModelParams, cfg: ModelConfig,
                 tokens: torch.Tensor, state: StackState,
-                host: Optional[HostIO] = None
+                host: Optional[HostIO] = None,
+                graphs: Optional[StepGraphs] = None
                 ) -> Tuple[torch.Tensor, StackState, Optional[QKVOut],
                            torch.Tensor]:
     """One decode iteration.
 
     tokens: (Bg,) fresh tokens of the device rows; host rows ride along
-    via ``host.x_carry``.  Returns (logits (B_total, V), new_state,
-    qkv_out, x_final); ``x_final[Bg:]`` is the host rows' residual carry.
+    via ``host.x_carry``.  ``graphs`` replays the step where it holds a
+    capture of it.  Returns (logits (B_total, V), new_state, qkv_out,
+    x_final); ``x_final[Bg:]`` is the host rows' residual carry.
     """
     with span("model.decode"):
-        x = embed(params.embedding, tokens)
-        positions = state.lengths
+        host_rows = None if host is None else host.x_carry.shape[0]
+        outputs = ("logits", "x")
         if host is not None:
-            x = torch.cat([x, host.x_carry.to(x.dtype)], dim=0)
-            positions = torch.cat([state.lengths,
-                                   host.positions.to(state.lengths.dtype)])
-        x, new_state, qkv_out = transformer.decode_step(
-            params.blocks, cfg, x, positions, state, host)
-        logits = constrain(_logits(params, cfg, x), "batch", "vocab")
-        return logits, new_state, qkv_out, x
+            outputs += ("emit_q", "emit_k", "emit_v")
+        out = _run(graphs, "decode", params, state,
+                   lambda: _decode_chain(params, cfg, state, host_rows),
+                   _decode_inputs(cfg, tokens, state, host), outputs)
+        qkv_out = None
+        if host is not None:
+            qkv_out = QKVOut(q=out["emit_q"], k=out["emit_k"],
+                             v=out["emit_v"])
+        return out["logits"], StackState(
+            per_entry=state.per_entry,
+            lengths=state.lengths + 1), qkv_out, out["x"]
+
+
+def capture_decode(params: ModelParams, cfg: ModelConfig,
+                   graphs: StepGraphs, state: StackState,
+                   host: Optional[HostIO] = None) -> None:
+    """Capture ``decode_step`` on ``state``'s rows and ``host``'s (any
+    phase: one capture serves them all).  The warm-up decodes token 0 in
+    every device row, writing its K/V at the state's lengths: capture on
+    a state whose rows hold nothing yet."""
+    tokens = torch.zeros(state.lengths.shape, dtype=torch.int64,
+                         device=state.lengths.device)
+    host_rows = None if host is None else host.x_carry.shape[0]
+    graphs.capture("decode", _bound(params, state),
+                   _decode_chain(params, cfg, state, host_rows),
+                   _decode_inputs(cfg, tokens, state, host))
+
+
+def capture_chunk(params: ModelParams, cfg: ModelConfig, graphs: StepGraphs,
+                  state: StackState, chunk_len: int) -> None:
+    """Capture ``prefill_chunk`` on ``state``'s rows and chunks of
+    ``chunk_len`` tokens.  The warm-up runs an idle chunk, writing K/V at
+    the state's lengths: capture on a state whose rows hold nothing
+    yet."""
+    device = state.lengths.device
+    rows = state.lengths.shape[0]
+    graphs.capture("chunk", _bound(params, state),
+                   _chunk_chain(params, cfg, state),
+                   _chunk_inputs(torch.zeros((rows, chunk_len),
+                                             dtype=torch.int64, device=device),
+                                 torch.zeros((rows,), dtype=torch.int32,
+                                             device=device), state))

@@ -18,6 +18,13 @@ The decode step implements the paper's Asynchronous Overlap semantics
   * host rows commit residual updates only inside their layer window
     [window_start, window_end); elsewhere they ride along.
 
+The decode step and the span forward (prefill, a prefill chunk) are
+built as a ``graphs.Chain``: pieces cut at each attention call, run
+eagerly here, replayed as CUDA graphs by ``graphs.StepGraphs``.  The host
+rows' layer fields enter the decode step as data (``host_controls``, per
+layer masks read by ``torch.where``), so one capture serves every phase
+of a cohort's journey; each select returns one operand, bit for bit.
+
 Recurrent (Mamba, xLSTM) state spans every row of the unified batch:
 host rows keep their recurrent state on the device and commit it only
 inside their window, as their residual.  Attention caches hold the
@@ -55,6 +62,7 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 
@@ -62,6 +70,7 @@ from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.models import moe, ssm
 from repro_torch.models.config import BlockKind, FFNKind, ModelConfig
+from repro_torch.models.graphs import IO, Chain, Op
 from repro_torch.models.kv_cache import AttnKV, StackState, write_rows
 from repro_torch.models.layers import (Params, attention_output, dense_init_,
                                        mlp, qkv_project, rmsnorm,
@@ -71,8 +80,8 @@ from repro_torch.tracing import span
 
 class HostIO(NamedTuple):
     """Per-iteration host-offload interface of the unified decode step.
-    Layer indices and the window are host ints; tensors live on the
-    model's device."""
+    Layer indices and the window are host ints (the step takes them as
+    data: ``host_controls``); tensors live on the model's device."""
 
     x_carry: torch.Tensor       # (Bc, d) residual carry of host rows
     positions: torch.Tensor     # (Bc,) int32 token positions of host rows
@@ -221,27 +230,22 @@ def _ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
         return _residual(x + mlp(p["ffn"], h2))
 
 
-def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, kc: Optional[torch.Tensor],
-               vc: Optional[torch.Tensor], lengths: Optional[torch.Tensor],
-               inv_freq: torch.Tensor,
-               prefix_len: Optional[torch.Tensor] = None,
-               aux: Optional[List[torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Attention block over x (B, T, d).  With a cache (kc, vc: this
-    layer's (B, S, KV, D)), the span is written in place at [lengths,
-    lengths + T) and attended over the cache; without one (the stateless
-    forward) over the span itself."""
+def _attn_in(p: Params, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor, inv_freq: torch.Tensor,
+             kc: Optional[torch.Tensor] = None,
+             vc: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention block over x (B, T, d) up to its attention call:
+    pre-norm, Q/K/V and RoPE.  With a cache (kc, vc: this layer's (B, S,
+    KV, D)) the span's K/V are written in place at ``positions``.
+    Returns (q, k, v)."""
     with span("model.attention"):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                               cfg.resolved_head_dim, positions, inv_freq)
         q = constrain(q, "batch", None, "heads", None)
-        if kc is None:
-            attn = ops.prefill_attention(q, k, v, prefix_len,
-                                         causal=cfg.causal)
-        else:
-            b, t = x.shape[:2]
+        if kc is not None:
+            b = x.shape[0]
             rows = torch.arange(b, device=x.device)[:, None]
             # padding past the cache end lands on its last column, which
             # no real token occupies at prefill and decode overwrites
@@ -256,18 +260,31 @@ def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
             else:
                 kc[rows, cols] = k.to(kc.dtype)
                 vc[rows, cols] = v.to(vc.dtype)
-            if not cfg.causal:
-                # full attention over the written positions: the causal
-                # mask OR a prefix reaching the span's end is exactly
-                # k < lengths + T
-                prefix_len = (lengths + t).to(torch.int32)
-            # causality on absolute positions (k <= lengths + i) also
-            # hides every cache column past the span just written
-            attn = ops.prefill_attention(q, kc, vc, prefix_len,
-                                         q_offset=lengths)
+    return q, k, v
+
+
+def _attn_out(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              attn: torch.Tensor, aux: Optional[List[torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The attention block over x (B, T, d) from its attention output
+    (B, T, H, D): the output projection, the residual, then the FFN."""
+    with span("model.attention"):
         attn = constrain(attn, "batch", None, "heads", None)
         x = _residual(x + attention_output(p["attn"], attn))
     return _ffn(p, cfg, x, aux, generator)
+
+
+def _attn_full(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, inv_freq: torch.Tensor,
+               prefix_len: Optional[torch.Tensor] = None,
+               aux: Optional[List[torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Attention block over x (B, T, d) attending over the span itself
+    (the stateless forward)."""
+    q, k, v = _attn_in(p, cfg, x, positions, inv_freq)
+    with span("model.attention"):
+        attn = ops.prefill_attention(q, k, v, prefix_len, causal=cfg.causal)
+    return _attn_out(p, cfg, x, attn, aux, generator)
 
 
 def _mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -330,8 +347,8 @@ def _stateless_group(group: Tuple[Params, ...], cfg: ModelConfig, g: int,
                 seed + g * cfg.pattern_period + j)
         entry_aux: List[torch.Tensor] = []
         if kind == BlockKind.ATTN:
-            x = _attn_full(p, cfg, x, positions, None, None, None, inv_freq,
-                           prefix_len, entry_aux, gen)
+            x = _attn_full(p, cfg, x, positions, inv_freq, prefix_len,
+                           entry_aux, gen)
         elif kind == BlockKind.MAMBA:
             zero = ssm.mamba_init_state(cfg.mamba, cfg.d_model, b,
                                         device=x.device)
@@ -386,6 +403,75 @@ def stack_forward_stateless(blocks: Tuple[Params, ...], cfg: ModelConfig,
     return x, total
 
 
+def span_layers(chain: Chain, blocks: Tuple[Params, ...],
+                cfg: ModelConfig, state: StackState) -> None:
+    """``stack_forward``'s layers appended to ``chain``, cut at each
+    attention call.  ``io`` holds "x" (B, T, d), "positions" (B, T) and
+    "lengths" (B,), the state's; optionally "valid_lens" and "prefix_len"
+    (B,).  "x" holds the output."""
+    inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
+                                state.lengths.device)
+
+    def begin(io: IO) -> None:
+        io["x"] = constrain(io["x"], "batch", "seq", None)
+        if not cfg.causal:
+            # full attention over the written positions: the causal mask
+            # OR a prefix reaching the span's end is exactly
+            # k < lengths + T
+            io["prefix_len"] = (io["lengths"]
+                                + io["x"].shape[1]).to(torch.int32)
+
+    def group_end(io: IO) -> None:
+        io["x"] = constrain(io["x"], "batch", "seq", None)
+
+    chain.add(begin)
+    for g in range(cfg.num_groups):
+        for j, kind in enumerate(cfg.block_pattern):
+            p = layer_params(blocks, j, g)
+            entry = state.per_entry[j]
+            if kind == BlockKind.ATTN:
+                _span_attention(chain, p, cfg, entry.k[g], entry.v[g],
+                                inv_freq)
+            else:
+                chain.add(_span_recurrent(p, cfg, kind, entry, g))
+        chain.add(group_end)
+
+
+def _span_attention(chain: Chain, p: Params, cfg: ModelConfig,
+                    kc: torch.Tensor, vc: torch.Tensor,
+                    inv_freq: torch.Tensor) -> None:
+    def head(io: IO) -> None:
+        io["q"] = _attn_in(p, cfg, io["x"], io["positions"], inv_freq, kc,
+                           vc)[0]
+
+    def attend(io: IO) -> torch.Tensor:
+        # causality on absolute positions (k <= lengths + i) also hides
+        # every cache column past the span just written
+        with span("model.attention"):
+            return ops.prefill_attention(io["q"], kc, vc,
+                                         io.get("prefix_len"),
+                                         q_offset=io["lengths"])
+
+    def tail(io: IO) -> None:
+        io["x"] = _attn_out(p, cfg, io["x"], io["attn"])
+
+    chain.add(head)
+    chain.cut(attend)
+    chain.add(tail)
+
+
+def _span_recurrent(p: Params, cfg: ModelConfig, kind: BlockKind, entry,
+                    g: int) -> Op:
+    def recurrent(io: IO) -> None:
+        if kind == BlockKind.MAMBA:
+            io["x"] = _mamba_block(p, cfg, io["x"], entry, g,
+                                   io.get("valid_lens"))
+        else:
+            io["x"] = _xlstm_block(p, cfg, kind, io["x"], entry, g,
+                                   io.get("valid_lens"))
+    return recurrent
+
+
 def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
                   x: torch.Tensor, positions: torch.Tensor,
                   state: StackState,
@@ -401,22 +487,14 @@ def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
     (``model.prefill_chunk``).  ``prefix_len`` (B,) makes keys below it
     visible to every query (prefix-LM).  The stateless forward is
     ``stack_forward_stateless``."""
-    x = constrain(x, "batch", "seq", None)
-    inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
-                                x.device)
-    lengths = state.lengths
-    for g in range(cfg.num_groups):
-        for j, kind in enumerate(cfg.block_pattern):
-            p = layer_params(blocks, j, g)
-            entry = state.per_entry[j]
-            if kind == BlockKind.MAMBA:
-                x = _mamba_block(p, cfg, x, entry, g, valid_lens)
-            elif kind != BlockKind.ATTN:
-                x = _xlstm_block(p, cfg, kind, x, entry, g, valid_lens)
-            else:
-                x = _attn_full(p, cfg, x, positions, entry.k[g], entry.v[g],
-                               lengths, inv_freq, prefix_len)
-        x = constrain(x, "batch", "seq", None)
+    chain = Chain()
+    span_layers(chain, blocks, cfg, state)
+    io = {"x": x, "positions": positions, "lengths": state.lengths}
+    if valid_lens is not None:
+        io["valid_lens"] = valid_lens
+    if prefix_len is not None:
+        io["prefix_len"] = prefix_len
+    x = chain.run(io)["x"]
     return x, StackState(per_entry=state.per_entry,
                          lengths=state.lengths + x.shape[1])
 
@@ -425,115 +503,158 @@ def stack_forward(blocks: Tuple[Params, ...], cfg: ModelConfig,
 # Unified decode step (APEX Asynchronous Overlap semantics)
 # ---------------------------------------------------------------------------
 
-
-def _attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                 rows: torch.Tensor, lengths: torch.Tensor,
-                 layer_idx: int, host: Optional[HostIO], device_batch: int,
-                 inv_freq: torch.Tensor):
-    """One attention block for one decode token.  x: (B, d).  A decode
-    token attends every cached position up to its own, so causal and
-    full attention are the same here, as in the reference.
-
-    Returns (x_new (pre-commit), q, k, v) with q/k/v (B, 1, heads, D)."""
-    with span("model.attention"):
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)[:, None]           # (B,1,d)
-        q, k, v = qkv_project(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.resolved_head_dim, positions[:, None],
-                              inv_freq)
-        bg = device_batch
-        # device rows: write the fresh token in place, attend over the
-        # cache
-        if is_dtensor(kc):
-            write_rows(kc, lengths[:, None], k[:bg].to(kc.dtype))
-            write_rows(vc, lengths[:, None], v[:bg].to(vc.dtype))
-        else:
-            kc[rows, lengths] = k[:bg, 0].to(kc.dtype)
-            vc[rows, lengths] = v[:bg, 0].to(vc.dtype)
-        attn = ops.decode_attention(q[:bg, 0], kc, vc, (lengths + 1).int())
-        if host is not None:
-            if layer_idx == host.consume_layer:
-                attn_c = host.attn_in.to(attn.dtype)
-            else:
-                attn_c = torch.zeros((x.shape[0] - bg,) + attn.shape[1:],
-                                     dtype=attn.dtype, device=x.device)
-            attn = torch.cat([attn, attn_c], dim=0)               # (B,H,D)
-        x = x + attention_output(p["attn"], attn[:, None])[:, 0]
-    return _ffn(p, cfg, x[:, None])[:, 0], q, k, v
+# the rows of ``host_controls``: per layer, whether the host rows take
+# ``attn_in`` as their attention there, commit there (their window), and
+# emit their Q/K/V there
+CONSUME, COMMIT, EMIT = range(3)
 
 
-def decode_step(blocks: Tuple[Params, ...], cfg: ModelConfig,
-                x: torch.Tensor, positions: torch.Tensor, state: StackState,
-                host: Optional[HostIO] = None):
-    """One decode iteration over the unified batch.
+def host_controls(cfg: ModelConfig, host: HostIO) -> np.ndarray:
+    """``host``'s layer fields as data: (3, num_layers) bool, rows
+    CONSUME, COMMIT and EMIT."""
+    layer = np.arange(cfg.num_layers)
+    return np.stack([layer == host.consume_layer,
+                     (host.window_start <= layer) & (layer < host.window_end),
+                     layer == host.emit_layer])
 
-    x: (B, d) residual-stream input -- device rows carry the fresh token
-    embedding, host rows carry ``host.x_carry``.  positions: (B,).
-    Returns (x_final (B, d), new_state, qkv_out | None).
-    """
-    device_batch = state.lengths.shape[0]
-    total = x.shape[0]
-    x = constrain(x, "batch", None)
-    period = cfg.pattern_period
+
+def decode_layers(chain: Chain, blocks: Tuple[Params, ...],
+                  cfg: ModelConfig, state: StackState,
+                  host_rows: Optional[int] = None) -> None:
+    """The decode step's layers over the unified batch appended to
+    ``chain``, cut at each attention call.
+
+    ``io`` holds "x" (B, d) -- device rows carry the fresh token
+    embedding, host rows their residual carry -- "positions" (B,) and
+    "lengths" (Bg,), the state's.  With ``host_rows`` (Bc) also
+    "attn_in" (Bc, H, D) fp32 host attention, "row_valid" (Bc,) and
+    "controls" (``host_controls``).  Outputs: "x" (x_final) and, with
+    host rows, "emit_q" / "emit_k" / "emit_v", fp32 (zeros where no layer
+    emits)."""
+    bg = state.lengths.shape[0]
+    device = state.lengths.device
+    hosted = host_rows is not None
     inv_freq = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
-                                x.device)
-    rows = torch.arange(device_batch, device=x.device)
-    lengths = state.lengths.long()
-    qkv_out = None
-    # per-row commit lengths of the recurrent state (1 = commit, 0 = ride
-    # along) inside and outside the host rows' window; None: all commit
-    commit_in = commit_out = None
-    if host is not None:
-        bc = total - device_batch
+                                device)
+    rows = torch.arange(bg, device=device)
+
+    def begin(io: IO) -> None:
+        io["x"] = constrain(io["x"], "batch", None)
+        io["len_idx"] = io["lengths"].long()
+        io["attn_lens"] = (io["len_idx"] + 1).int()
+        if not hosted:
+            return
         hd = cfg.resolved_head_dim
-        qkv_out = QKVOut(
-            q=torch.zeros((bc, cfg.num_heads, hd), device=x.device),
-            k=torch.zeros((bc, cfg.num_kv_heads, hd), device=x.device),
-            v=torch.zeros((bc, cfg.num_kv_heads, hd), device=x.device))
+        for name, heads in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
+                            ("v", cfg.num_kv_heads)):
+            io["emit_" + name] = torch.zeros((host_rows, heads, hd),
+                                             device=device)
+        # the controls read once a step: per layer, the host rows'
+        # attention (``attn_in`` at the consume layer, else zeros), the
+        # rows that commit (device rows; valid host rows in their window)
+        # and whether the host rows emit their Q/K/V
+        ctl = io["controls"]
+        io["emit"] = ctl[EMIT]
+        io["consume"] = ctl[CONSUME]
+        io["host_attn"] = io["attn_in"].to(io["x"].dtype)
+        window = ctl[COMMIT][:, None]
+        io["keep"] = torch.cat([
+            torch.ones((cfg.num_layers, bg), dtype=torch.bool, device=device),
+            window & io["row_valid"][None, :]], dim=1)
         if cfg.has_recurrent:
-            ones = torch.ones((device_batch,), dtype=torch.int32,
-                              device=x.device)
-            commit_in = torch.cat([ones, host.row_valid.int()])
+            # per-row commit lengths of the recurrent state (1 = commit,
+            # 0 = ride along) inside and outside the host rows' window
+            ones = torch.ones((bg,), dtype=torch.int32, device=device)
+            commit_in = torch.cat([ones, io["row_valid"].int()])
             commit_out = torch.cat([ones, torch.zeros(
-                (bc,), dtype=torch.int32, device=x.device)])
+                (host_rows,), dtype=torch.int32, device=device)])
+            io["commit_lens"] = torch.where(window, commit_in[None, :],
+                                            commit_out[None, :])
+
+    def commit(io: IO, layer: int, x_new: torch.Tensor) -> None:
+        """Device rows take the layer's output; host rows inside their
+        window too, valid rows only; the others ride along, bit for
+        bit."""
+        if hosted:
+            x_new = torch.where(io["keep"][layer][:, None], x_new, io["x"])
+        io["x"] = constrain(x_new, "batch", None)
+
+    chain.add(begin)
     for g in range(cfg.num_groups):
         for j, kind in enumerate(cfg.block_pattern):
-            layer_idx = g * period + j
-            in_window = host is not None and \
-                host.window_start <= layer_idx < host.window_end
+            layer = g * cfg.pattern_period + j
             p = layer_params(blocks, j, g)
             entry = state.per_entry[j]
             if kind == BlockKind.ATTN:
-                x_new, q, k, v = _attn_decode(
-                    p, cfg, x, positions, entry.k[g], entry.v[g], rows,
-                    lengths, layer_idx, host, device_batch, inv_freq)
-                if host is not None and layer_idx == host.emit_layer:
-                    # fresh tensors (never aliased by a later in-place
-                    # cache write), fp32 as the reference's accumulator
-                    # promotes
-                    qkv_out = QKVOut(q=q[device_batch:, 0].float(),
-                                     k=k[device_batch:, 0].float(),
-                                     v=v[device_batch:, 0].float())
+                _decode_attention(chain, p, cfg, layer, entry.k[g],
+                                  entry.v[g], rows, inv_freq, hosted, commit)
             else:
-                # host rows outside their window keep their state: a
-                # commit length of 0 freezes it bit for bit
-                lens = commit_in if in_window else commit_out
-                if kind == BlockKind.MAMBA:
-                    x_new = _mamba_block(p, cfg, x[:, None], entry, g, lens)
-                else:
-                    x_new = _xlstm_block(p, cfg, kind, x[:, None], entry, g,
-                                         lens)
-                x_new = x_new[:, 0]
-            if host is None:
-                x = constrain(x_new, "batch", None)
-                continue
-            if in_window:
-                host_rows = torch.where(host.row_valid[:, None],
-                                        x_new[device_batch:], x[device_batch:])
+                chain.add(_decode_recurrent(p, cfg, kind, layer, entry, g,
+                                            hosted, commit))
+
+
+def _decode_attention(chain: Chain, p: Params, cfg: ModelConfig,
+                      layer: int, kc: torch.Tensor, vc: torch.Tensor,
+                      rows: torch.Tensor, inv_freq: torch.Tensor,
+                      hosted: bool, commit) -> None:
+    """One attention block for one decode token.  A decode token attends
+    every cached position up to its own, so causal and full attention
+    are the same here, as in the reference."""
+    bg = rows.shape[0]
+
+    def head(io: IO) -> None:
+        with span("model.attention"):
+            h = rmsnorm(p["ln1"], io["x"], cfg.norm_eps)[:, None]  # (B,1,d)
+            q, k, v = qkv_project(p["attn"], h, cfg.num_heads,
+                                  cfg.num_kv_heads, cfg.resolved_head_dim,
+                                  io["positions"][:, None], inv_freq)
+            # device rows: write the fresh token in place
+            lengths = io["len_idx"]
+            if is_dtensor(kc):
+                write_rows(kc, lengths[:, None], k[:bg].to(kc.dtype))
+                write_rows(vc, lengths[:, None], v[:bg].to(vc.dtype))
             else:
-                host_rows = x[device_batch:]
-            x = constrain(torch.cat([x_new[:device_batch], host_rows], dim=0),
-                          "batch", None)
-    new_state = StackState(per_entry=state.per_entry,
-                           lengths=state.lengths + 1)
-    return x, new_state, qkv_out
+                kc[rows, lengths] = k[:bg, 0].to(kc.dtype)
+                vc[rows, lengths] = v[:bg, 0].to(vc.dtype)
+        io["q"] = q[:bg, 0]
+        if hosted:
+            # fresh tensors (never aliased by a later in-place cache
+            # write), fp32 as the reference's accumulator promotes (the
+            # select promotes to the fp32 buffer, exactly)
+            emit = io["emit"][layer]
+            for name, t in (("q", q), ("k", k), ("v", v)):
+                key = "emit_" + name
+                io[key] = torch.where(emit, t[bg:, 0], io[key])
+
+    def attend(io: IO) -> torch.Tensor:
+        with span("model.attention"):
+            return ops.decode_attention(io["q"], kc, vc, io["attn_lens"])
+
+    def tail(io: IO) -> None:
+        attn = io["attn"]
+        with span("model.attention"):
+            if hosted:
+                host_attn = torch.where(io["consume"][layer],
+                                        io["host_attn"], 0.0)
+                attn = torch.cat([attn, host_attn], dim=0)        # (B,H,D)
+            x = io["x"] + attention_output(p["attn"], attn[:, None])[:, 0]
+        commit(io, layer, _ffn(p, cfg, x[:, None])[:, 0])
+
+    chain.add(head)
+    chain.cut(attend)
+    chain.add(tail)
+
+
+def _decode_recurrent(p: Params, cfg: ModelConfig, kind: BlockKind,
+                      layer: int, entry, g: int, hosted: bool, commit) -> Op:
+    def recurrent(io: IO) -> None:
+        # host rows outside their window keep their state: a commit
+        # length of 0 freezes it bit for bit
+        lens = io["commit_lens"][layer] if hosted else None
+        x = io["x"][:, None]
+        if kind == BlockKind.MAMBA:
+            x_new = _mamba_block(p, cfg, x, entry, g, lens)
+        else:
+            x_new = _xlstm_block(p, cfg, kind, x, entry, g, lens)
+        commit(io, layer, x_new[:, 0])
+    return recurrent

@@ -36,6 +36,11 @@ executes its decisions:
     breaker that keeps the engine on the device for a doubling cooldown.
   * **cancel** -- a request is aborted wherever it sits, its resources
     freed (a host resident mid-journey at the next token boundary).
+  * **CUDA graphs** -- on the card, where ``models.graphs.capturable``
+    says so, the decode step (device slots, and with the host slots
+    riding along) and the chunk are captured at build, piece by piece
+    between their attention calls, and replayed every iteration
+    (``EngineStats.graph_steps`` of ``model_steps``).
 
 All moves copy values, so greedy tokens match a run without them (up
 to the bf16 device / fp32 host K/V of decode tokens, as in the
@@ -61,7 +66,8 @@ from repro_torch.core.perf_model import OnlineCalibrator, resolve_perf_model
 from repro_torch.core.scheduler import (AdmissionController, ApexScheduler,
                                         Decision, StrategyKind)
 from repro_torch.distributed.fault_tolerance import RestartPolicy
-from repro_torch.models import (ModelParams, decode_step,
+from repro_torch.models import (ModelParams, StepGraphs, capture_chunk,
+                                capture_decode, decode_step,
                                 decode_with_chunked_prefill,
                                 init_decode_state, prefill_bucketed,
                                 prefill_chunk)
@@ -70,7 +76,8 @@ from repro_torch.models.kv_cache import PagedKVPool, StackState
 from repro_torch.models.transformer import HostIO, QKVOut
 from repro_torch.serving.lifecycle import (ChunkPlan, EngineConfig,
                                            EngineStats, RequestLifecycle,
-                                           TierPlacer, reject, transition)
+                                           TierPlacer, pow2_ceil, reject,
+                                           transition)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.prefill_exec import (finish_chunks, prefill_batched,
                                               prefill_into_slot,
@@ -240,6 +247,24 @@ class Engine:
             self._kv_rows = self.e.device_slots + len(self.lc.staging) + (
                 self.prefix_state.lengths.shape[0]
                 if self.prefix_state is not None else 0)
+        # CUDA graphs of the model step's pieces, where the stack allows
+        # them (``graphs.capturable``): every shape the steps take is
+        # known now, and captured now, while no row holds anything
+        self.graphs = StepGraphs.for_device(cfg, self.device)
+        if self.graphs.captures:
+            self._capture_steps()
+
+    def _capture_steps(self) -> None:
+        """Capture the decode step over the device slots, with the host
+        slots riding along too when offload is on, and the chunk over the
+        staging rows."""
+        capture_decode(self.params, self.cfg, self.graphs, self.state)
+        if self.executor is not None:
+            capture_decode(self.params, self.cfg, self.graphs, self.state,
+                           self._zero_host_io())
+        if self._chunked:
+            capture_chunk(self.params, self.cfg, self.graphs,
+                          self.staging_state, pow2_ceil(self.e.chunk_tokens))
 
     def _on_pool_evict(self, owner: int) -> None:
         """The pool's LRU reclaimed a cached prefix chain: the first rung
@@ -694,6 +719,8 @@ class Engine:
                 self.stats.chunk_co_run_iterations += 1
             self._prefill_shapes.add(plan.tokens.shape)
             self.stats.prefill_compilations = len(self._prefill_shapes)
+        self.stats.model_steps = self.graphs.steps
+        self.stats.graph_steps = self.graphs.replays
         self.stats.iterations += 1
         self.lc.note_iteration()
         self._note_kv()
@@ -747,19 +774,21 @@ class Engine:
         if plan is None:
             logits, self.state, _, _ = decode_step(
                 self.params, self.cfg, tokens, self.state,
-                self._idle_host_io())
+                self._idle_host_io(), graphs=self.graphs)
             self._commit_device(logits, active_rows)
             return
         ctoks, clens = self._chunk_inputs(plan)
         if not active_rows:
             clogits, self.staging_state = prefill_chunk(
-                self.params, self.cfg, ctoks, clens, self.staging_state)
+                self.params, self.cfg, ctoks, clens, self.staging_state,
+                graphs=self.graphs)
             self._finish_chunks(plan, clogits)
             return
         logits, self.state, _, _, clogits, self.staging_state = \
             decode_with_chunked_prefill(
                 self.params, self.cfg, tokens, self.state,
-                self._idle_host_io(), ctoks, clens, self.staging_state)
+                self._idle_host_io(), ctoks, clens, self.staging_state,
+                graphs=self.graphs)
         self._commit_device(logits, active_rows)
         self._finish_chunks(plan, clogits)
 
@@ -771,21 +800,25 @@ class Engine:
         if self.executor is None or not self.cfg.has_recurrent:
             return None
         if self._idle_io is None:
-            bc = self.e.host_slots
-            emb = self.params.embedding["embed"]
-            self._idle_io = HostIO(
-                x_carry=torch.zeros((bc, self.cfg.d_model), dtype=emb.dtype,
-                                    device=self.device),
-                positions=torch.zeros((bc,), dtype=torch.int32,
-                                      device=self.device),
-                attn_in=torch.zeros((bc, self.cfg.num_heads,
-                                     self.cfg.resolved_head_dim),
-                                    dtype=torch.float32, device=self.device),
-                consume_layer=-1, emit_layer=-1, window_start=0,
-                window_end=0,
-                row_valid=torch.zeros((bc,), dtype=torch.bool,
-                                      device=self.device))
+            self._idle_io = self._zero_host_io()
         return self._idle_io
+
+    def _zero_host_io(self) -> HostIO:
+        """Every host slot empty and idle: no emit, no consume, an empty
+        commit window."""
+        bc = self.e.host_slots
+        emb = self.params.embedding["embed"]
+        return HostIO(
+            x_carry=torch.zeros((bc, self.cfg.d_model), dtype=emb.dtype,
+                                device=self.device),
+            positions=torch.zeros((bc,), dtype=torch.int32,
+                                  device=self.device),
+            attn_in=torch.zeros((bc, self.cfg.num_heads,
+                                 self.cfg.resolved_head_dim),
+                                dtype=torch.float32, device=self.device),
+            consume_layer=-1, emit_layer=-1, window_start=0, window_end=0,
+            row_valid=torch.zeros((bc,), dtype=torch.bool,
+                                  device=self.device))
 
     def _commit_device(self, logits: torch.Tensor,
                        active_rows: List[int]) -> np.ndarray:
@@ -861,13 +894,15 @@ class Engine:
                     window_end=0)
                 if plan is None:
                     logits, self.state, _, _ = decode_step(
-                        self.params, self.cfg, tokens, self.state, host_idle)
+                        self.params, self.cfg, tokens, self.state, host_idle,
+                        graphs=self.graphs)
                     self._commit_device(logits, active_rows)
                     return
                 logits, self.state, _, _, clogits, self.staging_state = \
                     decode_with_chunked_prefill(
                         self.params, self.cfg, tokens, self.state, host_idle,
-                        *self._chunk_inputs(plan), self.staging_state)
+                        *self._chunk_inputs(plan), self.staging_state,
+                        graphs=self.graphs)
                 self._commit_device(logits, active_rows)
                 self._finish_chunks(plan, clogits)
                 return
@@ -928,14 +963,15 @@ class Engine:
         clogits = None
         if plan is None:
             logits, self.state, qkv, x_final = decode_step(
-                self.params, self.cfg, tokens, self.state, io)
+                self.params, self.cfg, tokens, self.state, io,
+                graphs=self.graphs)
             submit_host_job(qkv)
         else:
             logits, self.state, qkv, x_final, clogits, self.staging_state = \
                 decode_with_chunked_prefill(
                     self.params, self.cfg, tokens, self.state, io,
                     *self._chunk_inputs(plan), self.staging_state,
-                    after_decode=submit_host_job)
+                    after_decode=submit_host_job, graphs=self.graphs)
         if breaker_open:
             # the async host tier is suspect: this layer's host attention
             # runs here, synchronously (ASYM_PIPELINE semantics, no

@@ -251,6 +251,10 @@ class EngineStats:
     # and tries that found it unfinished (the host rows rode untouched)
     host_consumes: int = 0
     host_late_polls: int = 0
+    # model steps run (decode steps and prefill chunks), and those served
+    # by replaying their CUDA graphs (models.graphs)
+    model_steps: int = 0
+    graph_steps: int = 0
     # latency distributions over retired requests (seconds)
     ttft_samples: List[float] = dataclasses.field(default_factory=list)
     itl_samples: List[float] = dataclasses.field(default_factory=list)

@@ -738,3 +738,217 @@ def test_slstm_kernel_long_frozen_row_and_split_bitwise(gen):
     assert torch.equal(torch.cat([first[0], second[0]], 1), got[0])
     for a, b in zip(second[1:], got[1:]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the model step's pieces (models.graphs)
+# ---------------------------------------------------------------------------
+
+
+def _graph_twins(slots=8, host=8, staging=16, width=64, cache=256):
+    """Reduced internlm2-1.8b (bf16, head_dim 128) with every step shape
+    captured on one set of states, and a twin set the steps run on
+    eagerly; both start empty."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (HostIO, StepGraphs, capture_chunk,
+                                    capture_decode, init_decode_state,
+                                    init_params)
+    cfg = get_config("internlm2-1.8b").reduced(layers=4, d_model=512,
+                                               vocab=512)
+    params = init_params(cfg, seed=0, device="cuda")
+    graphs = StepGraphs.for_device(cfg, torch.device("cuda"))
+    assert graphs.captures
+
+    def states():
+        return (init_decode_state(cfg, device_batch=slots, cache_len=cache,
+                                  device="cuda"),
+                init_decode_state(cfg, device_batch=staging, cache_len=cache,
+                                  device="cuda"))
+
+    dec, stg = states()
+    zero_host = HostIO(
+        x_carry=torch.zeros((host, cfg.d_model), dtype=torch.bfloat16,
+                            device="cuda"),
+        positions=torch.zeros((host,), dtype=torch.int32, device="cuda"),
+        attn_in=torch.zeros((host, cfg.num_heads, cfg.resolved_head_dim),
+                            device="cuda"),
+        consume_layer=-1, emit_layer=-1, window_start=0, window_end=0,
+        row_valid=torch.zeros((host,), dtype=torch.bool, device="cuda"))
+    capture_decode(params, cfg, graphs, dec)
+    capture_decode(params, cfg, graphs, dec, zero_host)
+    capture_chunk(params, cfg, graphs, stg, width)
+    for st in (dec, stg):                   # the warm-ups' writes
+        for entry in st.per_entry:
+            for t in entry:
+                t.zero_()
+        st.lengths.zero_()
+    return cfg, params, graphs, (dec, stg), states()
+
+
+def _same_state(a, b):
+    return torch.equal(a.lengths, b.lengths) and all(
+        torch.equal(x, y) for ea, eb in zip(a.per_entry, b.per_entry)
+        for x, y in zip(ea, eb))
+
+
+def test_step_graphs_replay_matches_the_eager_step(gen):
+    """Chunks over 16 staging rows, device-only decode over 8 slots and a
+    16-row cohort decode through every phase of a token's journey (the
+    late-poll idle one included), replayed from CUDA graphs against the
+    same steps run eagerly on twin states: K/V, logits, x_final, emitted
+    Q/K/V and greedy tokens bit for bit, one replay a step."""
+    import numpy as np
+    from repro_torch.core.overlap_engine import Cohort, OverlapController
+    from repro_torch.models import decode_step, prefill_chunk
+    cfg, params, graphs, (dec, stg), (dec_e, stg_e) = _graph_twins()
+    rng = np.random.default_rng(0)
+    plens = rng.integers(70, 200, 16)
+    prompts = rng.integers(0, cfg.vocab_size, (16, 200))
+    done = np.zeros(16, np.int64)
+    while (done < plens).any():
+        toks = np.zeros((16, 64), np.int64)
+        lens = np.minimum(plens - done, 64).astype(np.int32)
+        for r in range(16):
+            toks[r, :lens[r]] = prompts[r, done[r]:done[r] + lens[r]]
+        done += lens
+        args = (torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda())
+        before = graphs.replays
+        got, stg = prefill_chunk(params, cfg, *args, stg, graphs=graphs)
+        want, stg_e = prefill_chunk(params, cfg, *args, stg_e)
+        assert graphs.replays == before + 1
+        assert torch.equal(got, want) and _same_state(stg, stg_e)
+    for st, big in ((stg, dec), (stg_e, dec_e)):    # rows 0-7 to the slots
+        for eb, es in zip(big.per_entry, st.per_entry):
+            for b, s in zip(eb, es):
+                b.copy_(s[:, :8])
+        big.lengths.copy_(st.lengths[:8])
+    tokens = want[:8].argmax(-1)
+    for _ in range(3):
+        got, dec, _, x = decode_step(params, cfg, tokens, dec, graphs=graphs)
+        want, dec_e, _, x_e = decode_step(params, cfg, tokens, dec_e)
+        assert torch.equal(got, want) and torch.equal(x, x_e)
+        assert _same_state(dec, dec_e)
+        tokens = got.argmax(-1)
+    ctl = OverlapController(cfg)
+    cohort = Cohort(slot_rids=[1, 2, -1, 3, 4, -1, 5, 6],
+                    positions=rng.integers(50, 150, 8),
+                    x_carry=torch.randn((8, cfg.d_model), generator=gen,
+                                        device="cuda").to(torch.bfloat16),
+                    attn_in=torch.zeros((8, cfg.num_heads,
+                                         cfg.resolved_head_dim),
+                                        device="cuda"))
+    phases = []
+    for i in range(ctl.iterations_per_token):
+        phases.append(ctl.host_io(cohort))
+        if i == 1:
+            phases.append(phases[-1]._replace(
+                consume_layer=-1, emit_layer=-1, window_start=0,
+                window_end=0))
+        ctl.advance(cohort)
+    for host in phases:
+        host = host._replace(x_carry=cohort.x_carry, attn_in=torch.randn(
+            tuple(host.attn_in.shape), generator=gen, device="cuda"))
+        before = graphs.replays
+        got, dec, qkv, x = decode_step(params, cfg, tokens, dec, host,
+                                       graphs=graphs)
+        want, dec_e, qkv_e, x_e = decode_step(params, cfg, tokens, dec_e,
+                                              host)
+        assert graphs.replays == before + 1
+        assert torch.equal(got, want) and torch.equal(x, x_e)
+        assert all(torch.equal(a, b) for a, b in zip(qkv, qkv_e))
+        assert _same_state(dec, dec_e)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        tokens = got[:8].argmax(-1)
+        cohort.x_carry = x[8:]
+
+
+def test_step_graphs_keep_one_attention_launch_a_layer(gen):
+    """A replayed decode step launches the decode kernel once per
+    attention layer, a replayed chunk the prefill kernel once per layer,
+    each through ``kernels.ops`` (a wrapper put there sees every call)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.models import decode_step, prefill_chunk
+    cfg, params, graphs, (dec, stg), _ = _graph_twins()
+    seen = []
+    dec_op, pre_op = ops.decode_attention, ops.prefill_attention
+    ops.decode_attention = lambda *a: seen.append("d") or dec_op(*a)
+    ops.prefill_attention = lambda *a, **k: seen.append("p") or \
+        pre_op(*a, **k)
+    try:
+        decode_attention_cuda.launches = prefill_attention_cuda.launches = 0
+        tokens = torch.zeros((8,), dtype=torch.int64, device="cuda")
+        decode_step(params, cfg, tokens, dec, graphs=graphs)
+        assert decode_attention_cuda.launches == cfg.num_attn_layers
+        prefill_chunk(params, cfg,
+                      torch.zeros((16, 64), dtype=torch.int64, device="cuda"),
+                      torch.full((16,), 64, dtype=torch.int32, device="cuda"),
+                      stg, graphs=graphs)
+        assert prefill_attention_cuda.launches == cfg.num_attn_layers
+    finally:
+        ops.decode_attention, ops.prefill_attention = dec_op, pre_op
+    assert graphs.replays == 2
+    assert seen == ["d"] * cfg.num_attn_layers + ["p"] * cfg.num_attn_layers
+    # the device's graphs share one pool: a replay on another stream
+    # could overlap another engine's, and is refused
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="default stream"):
+            decode_step(params, cfg, tokens, dec, graphs=graphs)
+    assert graphs.replays == 2
+
+
+def test_two_engines_in_two_threads_capture_and_serve_alike(gen):
+    """Two threads each build, run and drop an engine three times, as a
+    gateway's replica is respawned beside a live one: captures and frees
+    of one thread's graphs fall between the other's replays (one memory
+    pool).  Every engine serves the tokens one engine serves alone, every
+    model step replayed."""
+    import gc
+    import threading
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, EngineConfig, Request
+    cfg = get_config("internlm2-1.8b").reduced(layers=4, d_model=512,
+                                               vocab=512)
+    params = init_params(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(2)
+    prompts = [list(rng.integers(0, cfg.vocab_size, n))
+               for n in (40, 90, 130, 20, 75, 60)]
+
+    def serve(out, i):
+        eng = Engine(cfg, params, EngineConfig(
+            device="cuda", device_slots=2, host_slots=2, cache_len=256,
+            chunk_tokens=32, host_workers=1, tier_rebalance=False,
+            preemption=False))
+        try:
+            reqs = [Request(prompt=list(p), max_new_tokens=12)
+                    for p in prompts]
+            eng.run(reqs)
+            out[i] = ([r.output for r in reqs], eng.stats)
+        finally:
+            eng.shutdown()
+
+    def rounds(out, i):
+        for r in range(3):
+            serve(out, (i, r))
+            gc.collect()                # this engine's graphs go now
+
+    alone = {}
+    serve(alone, 0)
+    both = {}
+    threads = [threading.Thread(target=rounds, args=(both, i))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    tokens, stats = alone[0]
+    assert stats.host_tokens > 0
+    assert stats.graph_steps == stats.model_steps > 0
+    assert len(both) == 6
+    for out, st in both.values():
+        assert out == tokens
+        assert st.graph_steps == st.model_steps > 0
